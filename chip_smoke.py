@@ -1,0 +1,368 @@
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU and check it end to end.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line; any failure raises and exits non-zero:
+
+  1. device     require CUDA; print the card's name and power limit
+                (nvidia-smi) on a line of its own
+  2. build      build every hand-written kernel from ops/csrc with nvcc for
+                sm_90a, one nvcc per source, all started together
+  3. kernels    hold each kernel equal to its plain PyTorch version on the
+                card over odd shapes, all-zero / all-ones / top-bit rows and
+                the main path's shapes; time kernel, plain version and
+                bound at the main path's shapes
+  4. identity   batched Handel at 64 nodes x 2 replicas x 300 ms, flagship-
+                shaped and with byzantine_suicide: the port on the CPU
+                (plain versions) and on CUDA (kernels) give identical state
+                in every leaf
+  5. flagship   the main path: make_handel(flagship_params(4096)),
+                replicate_state(R=16), run_ms_batched in 20-ms chunks up to
+                1000 ms with stop_when_done; every live node must finish and
+                the popcount kernel must have launched in this run
+  6. profile    a 10-tick torch.profiler window of the flagship (after 100
+                warm ticks): kernels and device time per tick, the device's
+                busy share of a tick, the ops that take the device time
+  7. byzantine  4096 nodes, 1024 down, byzantine_suicide, R=4, 1000 ms; the
+                lowest-set-bit kernel must have launched in this run
+  8. kernels    one line listing every ported kernel with its numbers
+
+The last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from wittgenstein_tpu_torch.engine import replicate_state
+from wittgenstein_tpu_torch.interop import state_to_numpy
+from wittgenstein_tpu_torch.ops import bitops, kernels
+from wittgenstein_tpu_torch.protocols.handel import HandelParameters, flagship_params
+from wittgenstein_tpu_torch.protocols.handel_batched import make_handel
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak (NVIDIA data sheet, at 700 W)
+INT_OPS_PER_S = 67e12  # 32-bit rate outside the tensor cores (same sheet's fp32)
+FLAGSHIP_REPLICAS = 16
+BYZ_REPLICAS = 4
+CHUNK_MS = 20
+SIM_MS = 1000
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def device_info() -> dict:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false — no card")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    info = {
+        "phase": "device",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+        "nvidia_smi": smi,
+        "torch": torch.__version__,
+        "cuda": torch.version.cuda,
+    }
+    emit(info)
+    return info
+
+
+def build() -> None:
+    t0 = time.perf_counter()
+    kernels.build_all()
+    regs = {
+        k.name: [ln.strip() for ln in k.build_log.splitlines() if "registers" in ln]
+        for k in kernels.KERNELS
+    }
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": regs})
+
+
+def graph_ms(fn, reps: int = 20, iters: int = 5) -> float:
+    """Device time per call of fn: `reps` calls captured in a CUDA graph
+    and replayed, so host-side launch cost does not hide in the number."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        g.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / (iters * reps)
+
+
+def _check_cases(gen: torch.Generator):
+    """Odd shapes over every width class, plus the special fills."""
+    dev = "cuda"
+    for w in (1, 2, 3, 4, 5, 7, 8, 9, 16, 31, 32, 33, 64, 100, 128):
+        for rows in ((1,), (7,), (257,), (3, 5, 11)):
+            x = torch.randint(-(2**31), 2**31, rows + (w,), generator=gen,
+                              dtype=torch.int64).to(torch.int32).to(dev)
+            yield x
+            # sparse rows: most words zero, so lowest_set_bit lands deep
+            keep = torch.rand(rows + (w,), generator=gen) < 0.05
+            yield torch.where(keep.to(dev), x, 0)
+            yield torch.zeros(rows + (w,), dtype=torch.int32, device=dev)
+            yield torch.full(rows + (w,), -1, dtype=torch.int32, device=dev)
+            yield torch.full(rows + (w,), -(2**31), dtype=torch.int32, device=dev)
+    # a broadcast (stride-0) operand goes through the contiguity path
+    row = torch.randint(-(2**31), 2**31, (1, 64), generator=gen,
+                        dtype=torch.int64).to(torch.int32).to(dev)
+    yield row.expand(300, 64)
+
+
+def check_kernel(kernel, fn, plain, main_shape, gen) -> dict:
+    worst = 0
+    for x in _check_cases(gen):
+        got, want = fn(x), plain(x)
+        torch.cuda.synchronize()
+        if got.dtype != want.dtype or got.shape != want.shape:
+            raise AssertionError(f"{kernel.name}: {got.dtype}{tuple(got.shape)} "
+                                 f"vs plain {want.dtype}{tuple(want.shape)}")
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) if got.numel() else 0
+        if err:
+            raise AssertionError(f"{kernel.name} disagrees with its plain version "
+                                 f"at {tuple(x.shape)}: max |err| {err}")
+        worst = max(worst, err)
+    x = torch.randint(-(2**31), 2**31, main_shape, generator=gen,
+                      dtype=torch.int64).to(torch.int32).cuda()
+    if kernel is kernels.LOWEST_SET_BIT:
+        # Byzantine eligibility rows are sparse: a few set bits per row
+        x = torch.where(torch.rand(main_shape, generator=gen).cuda() < 0.02, x, 0)
+    got, want = fn(x), plain(x)
+    torch.cuda.synchronize()
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    if err:
+        raise AssertionError(f"{kernel.name} disagrees at the main-path shape: {err}")
+    m, w = int(np.prod(main_shape[:-1])), main_shape[-1]
+    if kernel is kernels.LOWEST_SET_BIT:
+        # data-dependent work: a row is read up to its first nonzero word
+        first = torch.argmax((x != 0).to(torch.uint8), dim=-1)
+        empty = (x == 0).all(-1)
+        words_read = int(torch.where(empty, w, first + 1).sum())
+    else:
+        words_read = m * w
+    bytes_moved = 4 * words_read + 4 * m
+    ops = 2 * words_read
+    bound_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    bound_ops = ops / INT_OPS_PER_S * 1e3
+    kernel_ms = graph_ms(lambda: fn(x))
+    plain_ms = graph_ms(lambda: plain(x))
+    return {
+        "name": kernel.name,
+        "route": "cuda",
+        "source": f"wittgenstein_tpu_torch/ops/csrc/{kernel.source.name}",
+        "replaces": kernel.replaces,
+        "max_abs_err": worst,
+        "shape": list(main_shape),
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bound_bytes, bound_ops),
+        "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+        "library_ms": None,
+        "bytes": bytes_moved,
+        "gb_per_s": bytes_moved / (kernel_ms * 1e-3) / 1e9,
+    }
+
+
+def run_kernels() -> dict:
+    gen = torch.Generator().manual_seed(0)
+    rows = {}
+    for kernel, fn, plain, shape in (
+        # the flagship's largest popcount operand: R*4096 nodes x K=8
+        # candidate slots of the top level's 64 words
+        (kernels.POPCOUNT, kernels.popcount_words, bitops.popcount_words_plain,
+         (FLAGSHIP_REPLICAS * 4096 * 8, 64)),
+        # hidden-/suicide-Byzantine eligibility rows at the top level
+        (kernels.LOWEST_SET_BIT, kernels.lowest_set_bit, bitops.lowest_set_bit_plain,
+         (BYZ_REPLICAS * 4096, 64)),
+    ):
+        rows[kernel.name] = check_kernel(kernel, fn, plain, shape, gen)
+        emit({"phase": "kernel_check", **rows[kernel.name]})
+    return rows
+
+
+def _leaf_diff(a: dict, b: dict) -> list:
+    bad = []
+    for f, va in a.items():
+        vb = b[f]
+        if isinstance(va, dict):
+            if set(va) != set(vb):
+                bad.append(f"proto keys {sorted(set(va) ^ set(vb))}")
+            for k in va:
+                if va[k].dtype != vb[k].dtype or not np.array_equal(va[k], vb[k]):
+                    bad.append(f"proto.{k}")
+        elif isinstance(va, np.ndarray):
+            if va.dtype != vb.dtype or not np.array_equal(va, vb):
+                bad.append(f)
+    return bad
+
+
+def small_identity() -> None:
+    cases = {
+        "flagship_shaped": flagship_params(64),
+        "byzantine_suicide": HandelParameters(
+            node_count=64, nodes_down=16, threshold=47, byzantine_suicide=True
+        ),
+    }
+    for name, params in cases.items():
+        outs = {}
+        t0 = time.perf_counter()
+        for dev in ("cpu", "cuda"):
+            net, state = make_handel(params, score_cache=True, device=dev)
+            states = replicate_state(state, 2)
+            for _ in range(3):
+                states = net.run_ms_batched(states, 100)
+            outs[dev] = state_to_numpy(states)
+        bad = _leaf_diff(outs["cpu"], outs["cuda"])
+        if bad:
+            raise AssertionError(f"identity {name}: CPU and CUDA differ in {bad[:10]}")
+        done = outs["cuda"]["done_at"]
+        emit({"phase": "identity", "case": name, "nodes": 64, "replicas": 2, "ms": 300,
+              "leaves_equal": True, "done_nodes": int((done > 0).sum()),
+              "seconds": time.perf_counter() - t0})
+
+
+def _quantiles(done: np.ndarray, down: np.ndarray) -> dict:
+    live = done[~down]
+    fin = live[live > 0]
+    q = np.percentile(fin, [10, 50, 90]).tolist() if fin.size else [None] * 3
+    return {"done_share": float(fin.size / max(1, live.size)),
+            "done_at_p10": q[0], "done_at_p50": q[1], "done_at_p90": q[2]}
+
+
+def drive(params, replicas: int) -> dict:
+    """The main path as a user drives it; returns its measurements."""
+    torch.cuda.synchronize()
+    t_build = time.perf_counter()
+    net, state = make_handel(params)
+    states = replicate_state(state, replicas)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_build
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(SIM_MS // CHUNK_MS):
+        states = net.run_ms_batched(states, CHUNK_MS, True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    done = states.done_at.cpu().numpy()
+    down = states.down.cpu().numpy()
+    live_done = np.where(down, 1, done)
+    # the lockstep loop stops before the tick after the last completion
+    ticks = int(done.max()) + 1 if (live_done > 0).all() else SIM_MS
+    return {
+        "nodes": params.node_count,
+        "replicas": replicas,
+        "build_s": build_s,
+        "wall_s": wall,
+        "sims_per_s": replicas / wall,
+        "ticks": ticks,
+        "ms_per_tick": wall / ticks * 1e3,
+        "launches": launches,
+        "launches_per_tick": {k: v / ticks for k, v in launches.items()},
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "displaced": states.proto["displaced"].cpu().tolist(),
+        **_quantiles(done, down),
+        "_all_live_done": bool((live_done > 0).all()),
+    }
+
+
+def flagship() -> dict:
+    out = drive(flagship_params(4096), FLAGSHIP_REPLICAS)
+    if not out["_all_live_done"]:
+        raise AssertionError(f"flagship: not every live node finished: {out}")
+    if out["launches"]["popcount_words"] <= 0:
+        raise AssertionError("flagship: popcount_words kernel never launched")
+    emit({"phase": "flagship", **{k: v for k, v in out.items() if not k.startswith("_")}})
+    return out
+
+
+def profile_window(flag: dict, warm_ticks: int = 100, ticks: int = 10) -> None:
+    """Where a flagship tick's time goes, from a short profiled window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    net, state = make_handel(flagship_params(4096))
+    states = net.run_ms_batched(replicate_state(state, FLAGSHIP_REPLICAS), warm_ticks)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        states = net.run_ms_batched(states, ticks)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kern:
+        raise AssertionError("profile: the profiler recorded no device activity")
+    device_ms = sum(e.device_time for e in kern) / 1e3 / ticks
+    ops = [e for e in prof.key_averages() if e.key.startswith("aten::")]
+    ops.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    emit({
+        "phase": "profile",
+        "window_ticks": [warm_ticks, warm_ticks + ticks],
+        "kernels_per_tick": len(kern) / ticks,
+        "device_ms_per_tick": device_ms,
+        # against the unprofiled flagship's wall time per tick
+        "device_busy_share": device_ms / flag["ms_per_tick"],
+        "top_ops": [
+            {"op": e.key, "calls_per_tick": e.count / ticks,
+             "device_ms_per_tick": e.self_device_time_total / 1e3 / ticks}
+            for e in ops[:10]
+        ],
+    })
+
+
+def byzantine() -> dict:
+    params = HandelParameters(
+        node_count=4096, nodes_down=1024, threshold=int(3072 * 0.99),
+        byzantine_suicide=True,
+    )
+    out = drive(params, BYZ_REPLICAS)
+    if out["launches"]["lowest_set_bit"] <= 0:
+        raise AssertionError("byzantine: lowest_set_bit kernel never launched")
+    emit({"phase": "byzantine", "nodes_down": 1024,
+          **{k: v for k, v in out.items() if not k.startswith("_")}})
+    return out
+
+
+def main() -> int:
+    info = device_info()
+    build()
+    rows = run_kernels()
+    small_identity()
+    flag = flagship()
+    profile_window(flag)
+    byz = byzantine()
+    # launches: each kernel's count from the run of its path — popcount
+    # from the flagship, lowest_set_bit from the Byzantine run (the
+    # flagship runs no attack, so it never reaches that kernel)
+    rows["popcount_words"]["launches"] = flag["launches"]["popcount_words"]
+    rows["lowest_set_bit"]["launches"] = byz["launches"]["lowest_set_bit"]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    emit({"kernels": [{k: r[k] for k in keys} for r in rows.values()]})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],
+                                 "count": info["count"]}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

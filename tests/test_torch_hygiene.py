@@ -1,0 +1,93 @@
+"""The port stands alone: no JAX, nothing of the JAX package, CUDA by default.
+
+wittgenstein_tpu_torch and chip_smoke.py must import neither `jax` nor
+anything of `wittgenstein_tpu` (they run on machines without JAX), and
+the port's entry points must run on CUDA unless asked for the CPU —
+without a card they raise instead of quietly running on the CPU.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import wittgenstein_tpu_torch
+from wittgenstein_tpu_torch.core.registries import registry_network_latencies
+from wittgenstein_tpu_torch.engine import BatchedNetwork
+from wittgenstein_tpu_torch.protocols.handel import HandelParameters, flagship_params
+from wittgenstein_tpu_torch.protocols.handel_batched import BatchedHandel, make_handel
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = Path(wittgenstein_tpu_torch.__file__).resolve().parent
+SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _module_names():
+    for p in sorted(PKG.rglob("*.py")):
+        rel = p.relative_to(PKG.parent).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        yield ".".join(parts)
+
+
+def test_import_loads_no_jax():
+    mods = list(_module_names()) + ["chip_smoke"]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'wittgenstein_tpu' or m.startswith('wittgenstein_tpu.'))\n"
+        "print(len(sys.modules), bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_import_in_source(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "wittgenstein_tpu"), (
+            f"{path.relative_to(ROOT)} imports {mod}"
+        )
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    params = HandelParameters(node_count=64)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_handel(params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BatchedNetwork(BatchedHandel(params), registry_network_latencies.get_by_name(None), 64)
+    # asking for the CPU is the one way to run without a card
+    net, state = make_handel(params, device="cpu")
+    assert net.device.type == "cpu" and state.done_at.device.type == "cpu"
+    assert not net.protocol.SCORE_CACHE  # the CPU default arm
+
+
+def test_unported_engine_options_raise():
+    proto = BatchedHandel(flagship_params(64))
+    lat = registry_network_latencies.get_by_name(None)
+    for kw in (dict(wheel_rows=512), dict(telemetry=object()), dict(faults=object()),
+               dict(batched_jumps=True)):
+        with pytest.raises(NotImplementedError):
+            BatchedNetwork(proto, lat, 64, device="cpu", **kw)

@@ -1,0 +1,26 @@
+"""wittgenstein_tpu_torch — the PyTorch/CUDA port of wittgenstein_tpu.
+
+The batched simulation engine and its protocols, re-expressed as plain
+PyTorch functions on tensors that carry the replica axis R explicitly,
+with the JAX package's Pallas bitset kernels rewritten as hand-written
+CUDA C++ kernels for Hopper (sm_90a).  The JAX package next door is the
+reference: the port takes the same inputs and yields bit-identical state,
+leaf for leaf (tests/test_torch_*.py).
+
+Entry points (`protocols.handel_batched.make_handel`,
+`engine.core.BatchedNetwork`) run on CUDA unless the caller passes
+`device="cpu"`; without a card they raise instead of falling back.  On a
+CUDA tensor every bitset op launches its kernel; on a CPU tensor it runs
+the kernel's plain PyTorch version.
+
+Layout mirrors the JAX package so each module's counterpart is easy to
+find:
+  utils/      JavaRandom, Pareto distribution, Java integer helpers
+  core/       node population, geometry, latency model, registries
+  engine/     SimState, BatchedNetwork, counter RNG, narrow storage plans
+  ops/        packed-bitset ops, their CUDA kernels (ops/csrc) and binding
+  protocols/  batched Handel on the bitset-aggregation base
+  interop.py  carry a JAX-package state into the port and back
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,103 @@
+"""Node identity and the default node builder.
+
+Reference semantics: core Node.java (identity, position) and
+NodeBuilder.java (id allocation, random positions).  Only what the
+default builder, `builder_name("RANDOM", True, 0.0)`, needs: it carries
+no aspects, so a node draws exactly one `rd.next_int()` (its position)
+and keeps speed ratio 1.0 and extra latency 0 — the same JavaRandom
+stream, draw for draw, as the JAX package's builder.
+`build_node_columns` turns the population into the struct-of-arrays
+columns the batched engine reads.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List
+
+import numpy as np
+
+from ..utils.javaops import lshift32
+from ..utils.javarand import JavaRandom
+from .geo import DEFAULT_CITY, MAX_X, MAX_Y
+
+
+class Node:
+    __slots__ = (
+        "node_id",
+        "x",
+        "y",
+        "extra_latency",
+        "byzantine",
+        "speed_ratio",
+        "city_name",
+    )
+
+    def __init__(self, rd: JavaRandom, nb: "NodeBuilder", byzantine: bool = False):
+        self.node_id = nb.allocate_node_id()
+        if self.node_id < 0:
+            raise ValueError(f"bad nodeId: {self.node_id}")
+        rd_node = rd.next_int()
+        self.city_name = nb.get_city_name(rd_node)
+        self.x = nb.get_x(rd_node)
+        self.y = nb.get_y(rd_node)
+        if not (0 < self.x <= MAX_X):
+            raise ValueError(f"bad x={self.x}")
+        if not (0 < self.y <= MAX_Y):
+            raise ValueError(f"bad y={self.y}")
+        self.byzantine = byzantine
+        self.speed_ratio = 1.0
+        self.extra_latency = 0
+
+    def __repr__(self) -> str:
+        return f"Node{{nodeId={self.node_id}}}"
+
+
+class NodeBuilder:
+    def __init__(self):
+        self._node_ids = 0
+
+    def allocate_node_id(self) -> int:
+        nid = self._node_ids
+        self._node_ids += 1
+        return nid
+
+    def get_x(self, rd_int: int) -> int:
+        return 1
+
+    def get_y(self, rd_int: int) -> int:
+        return 1
+
+    def get_city_name(self, rd_int: int) -> str:
+        return DEFAULT_CITY
+
+
+class NodeBuilderWithRandomPosition(NodeBuilder):
+    """Position from the high/low 16 bits of one random int
+    (NodeBuilder.java:77-96, including the int32 overflow on the y path)."""
+
+    def get_x(self, rd_int: int) -> int:
+        r = abs(rd_int >> 16)  # arithmetic shift, then abs as 64-bit
+        return r % MAX_X + 1
+
+    def get_y(self, rd_int: int) -> int:
+        r = abs(lshift32(rd_int, 16))
+        return r % MAX_Y + 1
+
+
+def build_node_columns(nodes: List[Node], city_index: Dict[str, int] | None = None):
+    """Convert built Node objects into the static struct-of-arrays columns the
+    batched engine consumes.  city_index maps cityName -> int for city-matrix
+    latency models (absent cities map to -1)."""
+    n = len(nodes)
+    cols = {
+        "x": np.array([nd.x for nd in nodes], dtype=np.int32),
+        "y": np.array([nd.y for nd in nodes], dtype=np.int32),
+        "extra_latency": np.array([nd.extra_latency for nd in nodes], dtype=np.int32),
+        "speed_ratio": np.array([nd.speed_ratio for nd in nodes], dtype=np.float32),
+        "byzantine": np.array([nd.byzantine for nd in nodes], dtype=bool),
+        "city_idx": np.full(n, -1, dtype=np.int32),
+    }
+    if city_index:
+        for idx, nd in enumerate(nodes):
+            cols["city_idx"][idx] = city_index.get(nd.city_name, -1)
+    return cols

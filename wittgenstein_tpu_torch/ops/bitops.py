@@ -1,0 +1,123 @@
+"""Packed-bitset ops for the aggregation protocols.
+
+The batched Handel state keeps per-node contribution bitsets in an
+XOR-relative layout: bit j of node i's vector refers to node (i ^ j), so
+level l occupies bit block [2^(l-1), 2^l) for every node, and
+re-addressing a contribution from sender s's space into receiver r's
+space is the bit permutation j -> j ^ (r ^ s) (`xor_shuffle`).
+
+Words are uint32 in the JAX package.  Torch has no usable uint32
+arithmetic, so the port carries every word as an int32 tensor with the
+same bits.  `popcount_words` and `lowest_set_bit` dispatch on the
+tensor's device: a CUDA tensor launches the hand-written kernel
+(ops/kernels.py, sources in ops/csrc), a CPU tensor runs the plain
+PyTorch version below.  There is no other route and no fallback.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import kernels
+
+WORD = 32
+_M32 = 0xFFFFFFFF
+_BUTTERFLY_MASKS = (0x55555555, 0x33333333, 0x0F0F0F0F, 0x00FF00FF, 0x0000FFFF)
+
+
+def _check_words(words: torch.Tensor) -> None:
+    if words.dtype != torch.int32:
+        raise TypeError(f"packed words must be int32 bit views, got {words.dtype}")
+    if words.dim() < 1:
+        raise ValueError("packed words need a word axis")
+
+
+def popcount_words_plain(words: torch.Tensor) -> torch.Tensor:
+    """Plain version of the popcount kernel: [..., w] int32 words ->
+    [...] int32 total set bits.  SWAR ladder on the unsigned value held in
+    int64, so no step overflows."""
+    v = words.to(torch.int64) & _M32
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    v = ((v * 0x01010101) & _M32) >> 24
+    return v.sum(dim=-1).to(torch.int32)
+
+
+def lowest_set_bit_plain(words: torch.Tensor) -> torch.Tensor:
+    """Plain version of the lowest-set-bit kernel: [..., w] int32 words ->
+    [...] int32 index of the lowest set bit; 32 for an all-zero row (the
+    first word is taken and (0 & -0) - 1 has 32 bits set), the same as
+    the JAX package's lax path."""
+    nz = (words != 0).to(torch.uint8)
+    widx = torch.argmax(nz, dim=-1)  # first nonzero word; 0 if none
+    wval = torch.gather(words, -1, widx[..., None]).to(torch.int64) & _M32
+    low = ((wval & ((-wval) & _M32)) - 1) & _M32
+    return (widx.to(torch.int32) * WORD + popcount_words_plain(low.to(torch.int32)))
+
+
+def popcount_words(words: torch.Tensor) -> torch.Tensor:
+    """Total set bits over the last axis of packed int32 words."""
+    _check_words(words)
+    if words.is_cuda:
+        return kernels.popcount_words(words)
+    if words.device.type != "cpu":
+        raise RuntimeError(f"no popcount_words for device {words.device}")
+    return popcount_words_plain(words)
+
+
+def lowest_set_bit(words: torch.Tensor) -> torch.Tensor:
+    """Index of the lowest set bit over the last axis of packed [..., w]
+    int32 words (32 for an all-zero row — gate on popcount > 0)."""
+    _check_words(words)
+    if words.is_cuda:
+        return kernels.lowest_set_bit(words)
+    if words.device.type != "cpu":
+        raise RuntimeError(f"no lowest_set_bit for device {words.device}")
+    return lowest_set_bit_plain(words)
+
+
+def xor_shuffle(words: torch.Tensor, v) -> torch.Tensor:
+    """Permute bit positions j -> j ^ v of packed vectors.
+
+    words: [..., W] int32; v: int or a [...] integer tensor of xor values
+    in [0, 32 W).  The word-level part gathers word index ^ (v >> 5); the
+    bit-level part applies 5 conditional butterfly stages for v & 31.
+    Shifts of the int32 words are arithmetic in torch, so each right
+    shift is masked down to the bits a logical shift would keep."""
+    w = words.shape[-1]
+    if not isinstance(v, torch.Tensor):
+        v = torch.tensor(int(v), dtype=torch.int32, device=words.device)
+    v = v.to(torch.int64)
+    v_hi = v >> 5
+    v_lo = v & 31
+    idx = torch.arange(w, dtype=torch.int64, device=words.device)
+    gather_idx = (idx ^ v_hi[..., None]).expand(words.shape)
+    x = torch.gather(words, -1, gather_idx)
+    for b in range(5):
+        m = _BUTTERFLY_MASKS[b]
+        sh = 1 << b
+        # the masks' top `sh` bits are clear, so `>>` then `& m` drops
+        # exactly the sign-extended bits
+        swapped = ((x & m) << sh) | ((x >> sh) & m)
+        bit = ((v_lo >> b) & 1) == 1
+        x = torch.where(bit[..., None], swapped, x)
+    return x
+
+
+def block_mask(start: int, end: int, n_words: int) -> np.ndarray:
+    """Static mask with bits [start, end) set, as packed uint32 words."""
+    bits = ((1 << end) - 1) ^ ((1 << start) - 1)
+    out = np.zeros(n_words, dtype=np.uint32)
+    for w in range(n_words):
+        out[w] = (bits >> (32 * w)) & 0xFFFFFFFF
+    return out
+
+
+def level_block_mask(level: int, n_words: int) -> np.ndarray:
+    """Mask of level `level`'s block in the XOR layout: bit 0 for level 0,
+    bits [2^(l-1), 2^l) for level l >= 1."""
+    if level == 0:
+        return block_mask(0, 1, n_words)
+    return block_mask(1 << (level - 1), 1 << level, n_words)
