@@ -10,13 +10,15 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 sm_90a, one nvcc per source, all started together
   3. kernels    hold each kernel equal to its plain PyTorch version on the
                 card over odd shapes, all-zero / all-ones / top-bit rows and
-                the main path's shapes; time kernel, plain version and
-                bound at the main path's shapes
-  4. identity   batched Handel at 64 nodes x 2 replicas x 300 ms, flagship-
-                shaped and with byzantine_suicide: the port on the CPU
-                (plain versions) and on CUDA (kernels) give identical state
-                in every leaf
-  5. flagship   the main path: make_handel(flagship_params(4096)),
+                the main paths' shapes; time kernel, plain version and
+                bound at the main paths' shapes (pack_bool_words also at
+                [262144, 512], for bandwidth)
+  4. identity   the port on the CPU (plain versions) and on CUDA (kernels)
+                give identical state in every leaf: batched Handel at 64
+                nodes x 2 replicas x 300 ms, flagship-shaped and with
+                byzantine_suicide; PingPong at 64 nodes x 2 x 300 ms;
+                Dfinity (default) x 2 x 7000 ms
+  5. flagship   the Handel main path: make_handel(flagship_params(4096)),
                 replicate_state(R=16), run_ms_batched in 20-ms chunks up to
                 1000 ms with stop_when_done; every live node must finish and
                 the popcount kernel must have launched in this run
@@ -25,7 +27,16 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 busy share of a tick, the ops that take the device time
   7. byzantine  4096 nodes, 1024 down, byzantine_suicide, R=4, 1000 ms; the
                 lowest-set-bit kernel must have launched in this run
-  8. kernels    one line listing every ported kernel with its numbers
+  8. pingpong   the event-driven main path: make_pingpong(1000), R=4096,
+                run_ms_batched(700, stop_when_done) on the time wheel and
+                the consensus-jump loop; every witness must count 1000
+                pongs, nothing may drop, and pack_bool_words, lowest_set_bit
+                and popcount_words must have launched in this run
+  9. pp_profile a torch.profiler window of 20 ms of the PingPong run
+ 10. dfinity    make_dfinity(max_heights=64), R=1024, 15000 ms: nothing may
+                drop, every replica's head height (its highest notarized
+                block) reaches 4, and pack_bool_words must have launched
+ 11. kernels    one line listing every ported kernel with its numbers
 
 The last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -43,8 +54,10 @@ import torch
 from wittgenstein_tpu_torch.engine import replicate_state
 from wittgenstein_tpu_torch.interop import state_to_numpy
 from wittgenstein_tpu_torch.ops import bitops, kernels
+from wittgenstein_tpu_torch.protocols.dfinity_batched import make_dfinity
 from wittgenstein_tpu_torch.protocols.handel import HandelParameters, flagship_params
 from wittgenstein_tpu_torch.protocols.handel_batched import make_handel
+from wittgenstein_tpu_torch.protocols.pingpong_batched import make_pingpong
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak (NVIDIA data sheet, at 700 W)
 INT_OPS_PER_S = 67e12  # 32-bit rate outside the tensor cores (same sheet's fp32)
@@ -52,6 +65,11 @@ FLAGSHIP_REPLICAS = 16
 BYZ_REPLICAS = 4
 CHUNK_MS = 20
 SIM_MS = 1000
+PP_NODES = 1000
+PP_REPLICAS = 4096
+PP_MS = 700
+DF_REPLICAS = 1024
+DF_MS = 15000
 
 
 def emit(obj) -> None:
@@ -184,6 +202,73 @@ def check_kernel(kernel, fn, plain, main_shape, gen) -> dict:
     }
 
 
+def _pack_cases(gen):
+    """Bool operands over odd widths up to the wheel's 512 rows, random,
+    sparse, all-false and all-true, plus broadcast and strided views."""
+    dev = "cuda"
+    for w in (1, 2, 7, 31, 32, 33, 63, 64, 65, 100, 127, 128, 129, 255, 256, 257, 511, 512):
+        for rows in ((), (1,), (7,), (257,), (3, 5, 11)):
+            shape = rows + (w,)
+            yield (torch.rand(shape, generator=gen) < 0.5).to(dev)
+            yield (torch.rand(shape, generator=gen) < 0.02).to(dev)
+            yield torch.zeros(shape, dtype=torch.bool, device=dev)
+            yield torch.ones(shape, dtype=torch.bool, device=dev)
+    yield (torch.rand((1, 100), generator=gen) < 0.5).to(dev).expand(300, 100)
+    yield (torch.rand((64, 40), generator=gen) < 0.5).to(dev).t()
+
+
+def check_pack(gen) -> dict:
+    """pack_bool_words against its plain version; timed at the event-driven
+    path's shape (the wheel-occupancy rows of R = 4096 replicas) and at a
+    large shape for bandwidth."""
+    kernel, fn, plain = kernels.PACK_BOOL_WORDS, kernels.pack_bool_words, bitops.pack_bool_words_plain
+    worst = 0
+    for x in _pack_cases(gen):
+        got, want = fn(x), plain(x)
+        torch.cuda.synchronize()
+        if got.dtype != want.dtype or got.shape != want.shape:
+            raise AssertionError(f"{kernel.name}: {got.dtype}{tuple(got.shape)} "
+                                 f"vs plain {want.dtype}{tuple(want.shape)}")
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        if err:
+            raise AssertionError(f"{kernel.name} disagrees with its plain version "
+                                 f"at {tuple(x.shape)}: max |err| {err}")
+        worst = max(worst, err)
+    timed = []
+    for shape, plain_reps in (((PP_REPLICAS, 512), 20), ((262144, 512), 3)):
+        # wheel occupancy: a few occupied rows in 512
+        x = (torch.rand(shape, generator=gen) < 0.02).cuda()
+        got, want = fn(x), plain(x)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{kernel.name} disagrees at {shape}")
+        m, w = shape
+        bytes_moved = m * w + 4 * m * ((w + 31) // 32)
+        bound_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+        bound_ops = m * w / INT_OPS_PER_S * 1e3
+        kernel_ms = graph_ms(lambda: fn(x))
+        timed.append({
+            "shape": list(shape),
+            "ms": kernel_ms,
+            "plain_ms": graph_ms(lambda: plain(x), reps=plain_reps),
+            "bound_ms": max(bound_bytes, bound_ops),
+            "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+            "bytes": bytes_moved,
+            "gb_per_s": bytes_moved / (kernel_ms * 1e-3) / 1e9,
+        })
+    path, large = timed
+    return {
+        "name": kernel.name,
+        "route": "cuda",
+        "source": f"wittgenstein_tpu_torch/ops/csrc/{kernel.source.name}",
+        "replaces": kernel.replaces,
+        "max_abs_err": worst,
+        **path,
+        "library_ms": None,  # torch has no bit-packing call
+        "large": large,
+    }
+
+
 def run_kernels() -> dict:
     gen = torch.Generator().manual_seed(0)
     rows = {}
@@ -198,6 +283,8 @@ def run_kernels() -> dict:
     ):
         rows[kernel.name] = check_kernel(kernel, fn, plain, shape, gen)
         emit({"phase": "kernel_check", **rows[kernel.name]})
+    rows["pack_bool_words"] = check_pack(gen)
+    emit({"phase": "kernel_check", **rows["pack_bool_words"]})
     return rows
 
 
@@ -239,6 +326,24 @@ def small_identity() -> None:
         done = outs["cuda"]["done_at"]
         emit({"phase": "identity", "case": name, "nodes": 64, "replicas": 2, "ms": 300,
               "leaves_equal": True, "done_nodes": int((done > 0).sum()),
+              "seconds": time.perf_counter() - t0})
+    event_cases = {
+        "pingpong": (lambda dev: make_pingpong(64, device=dev), 300),
+        "dfinity": (lambda dev: make_dfinity(device=dev), 7000),
+    }
+    for name, (make, ms) in event_cases.items():
+        outs = {}
+        t0 = time.perf_counter()
+        for dev in ("cpu", "cuda"):
+            net, state = make(dev)
+            outs[dev] = state_to_numpy(net.run_ms_batched(replicate_state(state, 2), ms))
+        bad = _leaf_diff(outs["cpu"], outs["cuda"])
+        if bad:
+            raise AssertionError(f"identity {name}: CPU and CUDA differ in {bad[:10]}")
+        out = outs["cuda"]
+        emit({"phase": "identity", "case": name, "nodes": int(out["x"].shape[-1]),
+              "replicas": 2, "ms": ms, "leaves_equal": True,
+              "overflow_live": out["ovf_valid"].sum(-1).tolist(),
               "seconds": time.perf_counter() - t0})
 
 
@@ -343,6 +448,123 @@ def byzantine() -> dict:
     return out
 
 
+def _timed_run(net, states, ms: int, stop_when_done: bool):
+    """One event-driven run with the launch counts zeroed just before it
+    and read just after; returns (states, wall seconds, launches)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    states = net.run_ms_batched(states, ms, stop_when_done)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return states, wall, {k.name: k.launches for k in kernels.KERNELS}
+
+
+def _loop_numbers(net, replicas: int, wall: float, launches: dict) -> dict:
+    it = net.jump_stats["iterations"]
+    return {
+        "replicas": replicas,
+        "iterations": it,
+        "wall_s": wall,
+        "ms_per_iteration": wall / it * 1e3,
+        "sims_per_s": replicas / wall,
+        "launches": launches,
+        "launches_per_iteration": {k: v / it for k, v in launches.items()},
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+    }
+
+
+def pingpong() -> dict:
+    t_build = time.perf_counter()
+    net, state = make_pingpong(PP_NODES)
+    states = replicate_state(state, PP_REPLICAS)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_build
+    states, wall, launches = _timed_run(net, states, PP_MS, True)
+    pong = states.proto["pong"][:, 0].cpu().numpy()
+    dropped = states.dropped.cpu().numpy()
+    if not (pong == PP_NODES).all():
+        raise AssertionError(f"pingpong: {(pong != PP_NODES).sum()} witnesses not done")
+    if dropped.any():
+        raise AssertionError(f"pingpong: {int(dropped.sum())} messages dropped")
+    for name in ("pack_bool_words", "lowest_set_bit", "popcount_words"):
+        if launches[name] <= 0:
+            raise AssertionError(f"pingpong: {name} kernel never launched")
+    # with stop_when_done a replica's last executed tick is the tick its
+    # witness counted its last pong
+    done_tick = net.jump_stats["last_tick"].cpu().numpy()
+    q = np.percentile(done_tick, [10, 50, 90]).tolist()
+    out = {"nodes": PP_NODES, "ms": PP_MS, "build_s": build_s,
+           **_loop_numbers(net, PP_REPLICAS, wall, launches),
+           "done_tick_p10": q[0], "done_tick_p50": q[1], "done_tick_p90": q[2],
+           "done_tick_max": int(done_tick.max()), "dropped": int(dropped.sum())}
+    emit({"phase": "pingpong", **out})
+    return out
+
+
+def pp_profile(pp: dict, warm_ms: int = 200, window_ms: int = 20) -> None:
+    """Where a PingPong iteration's time goes: a profiled window of
+    window_ms simulated ms after warm_ms, per loop iteration."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    net, state = make_pingpong(PP_NODES)
+    states = net.run_ms_batched(replicate_state(state, PP_REPLICAS), warm_ms)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        states = net.run_ms_batched(states, window_ms)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    it = net.jump_stats["iterations"]
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kern:
+        raise AssertionError("pp_profile: the profiler recorded no device activity")
+    device_ms = sum(e.device_time for e in kern) / 1e3
+    ops = [e for e in prof.key_averages() if e.key.startswith("aten::")]
+    ops.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    emit({
+        "phase": "pp_profile",
+        "window_ms": [warm_ms, warm_ms + window_ms],
+        "iterations": it,
+        "kernels_per_iteration": len(kern) / it,
+        "device_ms_per_iteration": device_ms / it,
+        # against the unprofiled run's wall time per iteration
+        "device_busy_share": device_ms / it / pp["ms_per_iteration"],
+        "top_ops": [
+            {"op": e.key, "calls_per_iteration": e.count / it,
+             "device_ms_per_iteration": e.self_device_time_total / 1e3 / it}
+            for e in ops[:10]
+        ],
+    })
+
+
+def dfinity() -> dict:
+    net, state = make_dfinity(max_heights=64)
+    states = replicate_state(state, DF_REPLICAS)
+    states, wall, launches = _timed_run(net, states, DF_MS, False)
+    dropped = states.dropped.cpu().numpy()
+    heads = net.protocol.head_height(states).cpu().numpy()  # [R, N]
+    ovf = states.ovf_valid.sum(-1).cpu().numpy()
+    if dropped.any():
+        raise AssertionError(f"dfinity: {int(dropped.sum())} messages dropped")
+    # a replica's head height: the highest notarized block any of its
+    # nodes holds
+    replica_heads = heads.max(-1)
+    if replica_heads.min() < 4:
+        raise AssertionError(f"dfinity: a replica's head height is {replica_heads.min()} < 4")
+    if launches["pack_bool_words"] <= 0:
+        raise AssertionError("dfinity: pack_bool_words kernel never launched")
+    out = {"nodes": int(heads.shape[1]), "ms": DF_MS, **_loop_numbers(net, DF_REPLICAS, wall, launches),
+           "replica_head_min": int(replica_heads.min()), "node_head_min": int(heads.min()),
+           "node_head_max": int(heads.max()),
+           "overflow_live_mean": float(ovf.mean()), "overflow_live_max": int(ovf.max()),
+           "dropped": int(dropped.sum())}
+    emit({"phase": "dfinity", **out})
+    return out
+
+
 def main() -> int:
     info = device_info()
     build()
@@ -351,11 +573,16 @@ def main() -> int:
     flag = flagship()
     profile_window(flag)
     byz = byzantine()
+    pp = pingpong()
+    pp_profile(pp)
+    dfinity()
     # launches: each kernel's count from the run of its path — popcount
     # from the flagship, lowest_set_bit from the Byzantine run (the
-    # flagship runs no attack, so it never reaches that kernel)
+    # flagship runs no attack, so it never reaches that kernel),
+    # pack_bool_words from the PingPong run
     rows["popcount_words"]["launches"] = flag["launches"]["popcount_words"]
     rows["lowest_set_bit"]["launches"] = byz["launches"]["lowest_set_bit"]
+    rows["pack_bool_words"]["launches"] = pp["launches"]["pack_bool_words"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: r[k] for k in keys} for r in rows.values()]})

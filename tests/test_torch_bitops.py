@@ -1,7 +1,7 @@
 """The port's packed-bitset ops against the JAX package.
 
-`popcount_words`, `lowest_set_bit` and `xor_shuffle` of
-wittgenstein_tpu_torch run here as their plain PyTorch versions (CPU
+`popcount_words`, `lowest_set_bit`, `pack_bool_words` and `xor_shuffle`
+of wittgenstein_tpu_torch run here as their plain PyTorch versions (CPU
 tensors) and must equal the JAX package's lax twins bit for bit, and its
 Pallas kernels run in interpret mode (as tests/test_bitops_pallas.py runs
 them).  Words are int32 bit views on the port's side, uint32 on JAX's.
@@ -17,6 +17,7 @@ import torch
 from wittgenstein_tpu.ops import bitops as jbits
 from wittgenstein_tpu.ops.bitops_pallas import (
     lowest_set_bit_pallas,
+    pack_bool_words_pallas,
     popcount_words_pallas,
 )
 from wittgenstein_tpu_torch.ops import bitops as tbits
@@ -37,6 +38,11 @@ WORD_SHAPES = [
     (2, 8, 128),
 ]
 FILLS = ["random", "zeros", "ones", "top_bit", "sparse"]
+# pack_bool_words: bit axes around the word size and the wheel's 512 rows,
+# under 1-D, 2-D and 3-D operands
+BIT_WIDTHS = [1, 31, 32, 33, 64, 100, 512]
+BIT_LEADS = [(), (5,), (3, 4)]
+BIT_FILLS = ["random", "false", "true"]
 
 
 def _words(shape, fill, seed):
@@ -94,6 +100,44 @@ def test_plain_versions_match_pallas_interpret(shape, fill):
     )
 
 
+def _bits(shape, fill, seed):
+    if fill == "false":
+        return np.zeros(shape, bool)
+    if fill == "true":
+        return np.ones(shape, bool)
+    return np.random.RandomState(seed).rand(*shape) < 0.5
+
+
+@pytest.mark.parametrize("fill", BIT_FILLS)
+@pytest.mark.parametrize("lead", BIT_LEADS, ids=str)
+@pytest.mark.parametrize("width", BIT_WIDTHS)
+def test_pack_bool_words_matches_lax(width, lead, fill):
+    b = _bits(lead + (width,), fill, seed=width + len(lead))
+    got = tbits.pack_bool_words(torch.from_numpy(b))
+    assert got.dtype == torch.int32 and got.shape == lead + ((width + 31) // 32,)
+    want = np.asarray(jbits._pack_bool_words_lax(jnp.asarray(b)))
+    assert np.array_equal(got.numpy().view(np.uint32), want)
+    # round trip: bit j of word k is element 32k + j, padding bits zero
+    words = got.numpy().view(np.uint32)
+    unpacked = (words[..., :, None] >> np.arange(32, dtype=np.uint32)) & 1
+    flat = unpacked.reshape(lead + (-1,)).astype(bool)
+    assert np.array_equal(flat[..., :width], b) and not flat[..., width:].any()
+
+
+@pytest.mark.parametrize(
+    "shape,fill",
+    [((1,), "true"), ((7, 33), "random"), ((4, 512), "random"), ((2, 3, 100), "true"),
+     ((3, 64), "false")],
+    ids=str,
+)
+def test_pack_plain_matches_pallas_interpret(shape, fill):
+    b = _bits(shape, fill, seed=shape[-1])
+    assert np.array_equal(
+        tbits.pack_bool_words_plain(torch.from_numpy(b)).numpy().view(np.uint32),
+        np.asarray(pack_bool_words_pallas(jnp.asarray(b), lane_pad=False)),
+    )
+
+
 @pytest.mark.parametrize("n_words", [1, 2, 4, 64, 128])
 def test_xor_shuffle_matches_jax(n_words):
     rng = np.random.RandomState(n_words)
@@ -140,6 +184,14 @@ def test_dispatch_is_by_device_without_fallback():
         kernels.popcount_words(w)
     with pytest.raises(RuntimeError):
         kernels.lowest_set_bit(w)
+    bits = torch.from_numpy(_bits((5, 40), "random", 2))
+    assert torch.equal(tbits.pack_bool_words(bits), tbits.pack_bool_words_plain(bits))
+    assert {k.name: k.launches for k in kernels.KERNELS} == before
+    with pytest.raises(RuntimeError):
+        kernels.pack_bool_words(bits)
+    # pack takes bools only
+    with pytest.raises(TypeError):
+        tbits.pack_bool_words(bits.to(torch.int32))
     # words must be int32 bit views
     with pytest.raises(TypeError):
         tbits.popcount_words(w.to(torch.int64))

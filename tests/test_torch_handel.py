@@ -203,3 +203,19 @@ def test_ungated_run_ms_matches():
     assert_same_state(
         state_to_numpy(tnet.run_ms(ts, 1)), state_to_numpy(tnet.step(ts)), "step"
     )
+
+
+def test_wheel_store_matches():
+    """Handel on the 512-row time wheel: the per-ms beat-gated loop visits
+    one wheel row per tick (the channel bypasses the generic store, so the
+    rows stay empty and the clear must keep them so), leaf for leaf with
+    the JAX package (tests/test_timewheel.py's wheel case)."""
+    kw = dict(node_count=64, threshold=63)
+    jnet, js = jmake(JParams(**kw), fuse_step=True, score_cache=True, wheel_rows=512)
+    tnet, ts = tmake(TParams(**kw), score_cache=True, wheel_rows=512, device="cpu")
+    assert not tnet.flat and tnet.wheel_rows == 512
+    js = jnet.run_ms_batched(jreplicate(js, REPLICAS), 300)
+    ts = tnet.run_ms_batched(treplicate(ts, REPLICAS), 300)
+    assert_same_state(jax_numpy(js), state_to_numpy(ts), "wheel store")
+    assert ts.msg_valid.shape == (REPLICAS, 512, 64)
+    assert (ts.done_at > 0).any()

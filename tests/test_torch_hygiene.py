@@ -17,9 +17,11 @@ import torch
 
 import wittgenstein_tpu_torch
 from wittgenstein_tpu_torch.core.registries import registry_network_latencies
-from wittgenstein_tpu_torch.engine import BatchedNetwork
+from wittgenstein_tpu_torch.engine import BatchedNetwork, BatchedProtocol
 from wittgenstein_tpu_torch.protocols.handel import HandelParameters, flagship_params
+from wittgenstein_tpu_torch.protocols.dfinity_batched import make_dfinity
 from wittgenstein_tpu_torch.protocols.handel_batched import BatchedHandel, make_handel
+from wittgenstein_tpu_torch.protocols.pingpong_batched import make_pingpong
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = Path(wittgenstein_tpu_torch.__file__).resolve().parent
@@ -78,16 +80,37 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         make_handel(params)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         BatchedNetwork(BatchedHandel(params), registry_network_latencies.get_by_name(None), 64)
+    for make in (make_pingpong, make_dfinity):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
     # asking for the CPU is the one way to run without a card
     net, state = make_handel(params, device="cpu")
     assert net.device.type == "cpu" and state.done_at.device.type == "cpu"
     assert not net.protocol.SCORE_CACHE  # the CPU default arm
 
 
+class _CoarseProbe(BatchedProtocol):
+    TICK_INTERVAL = None
+    TIME_QUANTUM = 1024
+
+
+class _EveryFiveMs(BatchedProtocol):
+    TICK_INTERVAL = 5
+
+
 def test_unported_engine_options_raise():
+    """What the port still leaves out raises: the telemetry and fault
+    side-cars and tick intervals other than 1 and None; a quantum wider
+    than the wheel fails as in the JAX package."""
     proto = BatchedHandel(flagship_params(64))
     lat = registry_network_latencies.get_by_name(None)
-    for kw in (dict(wheel_rows=512), dict(telemetry=object()), dict(faults=object()),
-               dict(batched_jumps=True)):
-        with pytest.raises(NotImplementedError):
-            BatchedNetwork(proto, lat, 64, device="cpu", **kw)
+    for p, kw, exc in (
+        (proto, dict(telemetry=object()), NotImplementedError),
+        (proto, dict(faults=object()), NotImplementedError),
+        (_EveryFiveMs(), {}, NotImplementedError),
+        (_CoarseProbe(), dict(wheel_rows=512), ValueError),
+    ):
+        with pytest.raises(exc):
+            BatchedNetwork(p, lat, 64, device="cpu", **kw)
+    # the wheel and the consensus-jump switch are ported
+    BatchedNetwork(proto, lat, 64, device="cpu", wheel_rows=512, batched_jumps=True)

@@ -8,8 +8,10 @@ reference: the port takes the same inputs and yields bit-identical state,
 leaf for leaf (tests/test_torch_*.py).
 
 Entry points (`protocols.handel_batched.make_handel`,
-`engine.core.BatchedNetwork`) run on CUDA unless the caller passes
-`device="cpu"`; without a card they raise instead of falling back.  On a
+`protocols.pingpong_batched.make_pingpong`,
+`protocols.dfinity_batched.make_dfinity`, `engine.core.BatchedNetwork`)
+run on CUDA unless the caller passes `device="cpu"`; without a card they
+raise instead of falling back.  On a
 CUDA tensor every bitset op launches its kernel; on a CPU tensor it runs
 the kernel's plain PyTorch version.
 
@@ -17,9 +19,11 @@ Layout mirrors the JAX package so each module's counterpart is easy to
 find:
   utils/      JavaRandom, Pareto distribution, Java integer helpers
   core/       node population, geometry, latency model, registries
-  engine/     SimState, BatchedNetwork, counter RNG, narrow storage plans
+  engine/     SimState, BatchedNetwork (flat store and time wheel, lockstep
+              and consensus-jump loops), counter RNG, narrow storage plans
   ops/        packed-bitset ops, their CUDA kernels (ops/csrc) and binding
-  protocols/  batched Handel on the bitset-aggregation base
+  protocols/  batched Handel on the bitset-aggregation base; PingPong and
+              Dfinity on the event-driven path
   interop.py  carry a JAX-package state into the port and back
 """
 

@@ -9,16 +9,25 @@ engine/core.py:
     writes one replica and `vmap`s it;
   * per-destination latency jitter comes from the reference's own xorshift
     counter hash (rng.pseudo_delta), so multicast costs no per-dest state;
+  * in-flight messages live in a TIME WHEEL — `[W, B]` buckets keyed by
+    `arrival mod W` plus a small `[V]` overflow lane for beyond-horizon
+    arrivals and full-row spill; `wheel_rows=0` selects the flat store,
+    where every message goes through the overflow lane (the old full-scan
+    ring);
   * one tick delivers every due message, runs the protocol's vectorized
-    hooks and appends emissions; the loop over milliseconds is a host loop
-    whose clock `t` is a Python int, mirrored from `state.time` once per
-    call — every entry point asserts that all replicas share one time.
+    hooks and appends emissions; the loop is a host loop whose clock `t`
+    is a Python int.  Per-ms ticking protocols (TICK_INTERVAL 1) run in
+    lockstep — their entry points assert that all replicas share one
+    time.  Event-driven protocols (TICK_INTERVAL None) run the JAX
+    package's consensus-jump loop: each iteration executes the one tick
+    that is the minimum clock over the replicas still running, and each
+    replica then jumps to its own next arrival, so replicas' clocks may
+    differ.
 
-The port supports the flat message store only (`wheel_rows=0`: every
-message goes through the overflow lane, the old full-scan ring), per-ms
-ticking protocols (TICK_INTERVAL 1), and no fault or telemetry side-cars;
-it raises on anything else.  Its one step is the JAX package's fused step
-(`fuse_step=True`), which is bit-identical to the unfused one there.
+The port runs no fault or telemetry side-cars and no other tick interval;
+it raises on those.  Its one step is the JAX package's fused step
+(`fuse_step=True`), with the unfused step's exact row clear (see
+`_clear_visited_rows`).
 
 Every function is functional: it never writes into a tensor it was given,
 so a caller's state stays valid after a run, as with JAX.
@@ -34,12 +43,17 @@ import numpy as np
 import torch
 
 from ..core.latency import LatencyStatic, NetworkLatency, vec_latency
-from ..ops.indexing import add_at, take
+from ..ops.bitops import lowest_set_bit, pack_bool_words, popcount_words
+from ..ops.indexing import add_at, set_rows, take
 from .density import lane_plan
 from .rng import hash32, pseudo_delta
 
 MAX_PARTITIONS = 4
 INT_MAX = 2**31 - 1
+
+# default wheel horizon, ms, as in the JAX package: longer delays spill to
+# the overflow lane, which stays exact
+DEFAULT_WHEEL_ROWS = 512
 
 
 def resolve_device(device=None) -> torch.device:
@@ -81,15 +95,17 @@ class SimState(NamedTuple):
     city_idx: torch.Tensor  # int32[N]
     # partitions (Network.java:639-707)
     partition_x: torch.Tensor  # int32[MAX_PARTITIONS], INT_MAX = unused
-    # time wheel [W, B]; degenerate 1x1 in flat mode, never occupied
+    # time wheel [W, B]: row r holds messages with eff-arrival = r (mod W);
+    # degenerate 1x1 in flat mode, never occupied
     msg_valid: torch.Tensor  # bool[W, B]
     msg_arrival: torch.Tensor  # int32[W, B]
     msg_from: torch.Tensor  # lanes.idx[W, B]
     msg_to: torch.Tensor  # lanes.idx[W, B]
     msg_type: torch.Tensor  # lanes.mtype[W, B]
     msg_payload: torch.Tensor  # int32[W, B, P]
-    whl_fill: torch.Tensor  # int32[W]
-    # overflow lane [V]: in flat mode, the whole message store
+    whl_fill: torch.Tensor  # int32[W]: valid entries per row (dense prefix)
+    # overflow lane [V]: beyond-horizon arrivals and full-row spill; in
+    # flat mode, the whole message store
     ovf_valid: torch.Tensor  # bool[V]
     ovf_arrival: torch.Tensor  # int32[V]
     ovf_from: torch.Tensor  # lanes.idx[V]
@@ -133,9 +149,11 @@ class Emission:
 
     mask[R, K] selects real sends; from_idx/to_idx are [R, K] (or [K],
     shared by every replica) node ids; payload is [R, K, P] (or None when
-    P=0).  mtype is a static int or a per-row [R, K] tensor.  arrival,
-    when given, bypasses the latency model and sender counters
-    (sendArriveAt, Network.java:419-422)."""
+    P=0).  mtype is a static int or a per-row [R, K] tensor; send_time an
+    int or a tensor that broadcasts to [R, K] ([K] shared by every
+    replica, [R, 1] per replica).  arrival, when given, bypasses the
+    latency model and sender counters (sendArriveAt,
+    Network.java:419-422)."""
 
     mask: torch.Tensor
     from_idx: torch.Tensor
@@ -149,7 +167,15 @@ class Emission:
 class BatchedNetwork:
     """The engine: binds a latency model and a protocol to the step and
     run functions.  One instance serves any replica count (everything
-    batched lives in SimState)."""
+    batched lives in SimState).
+
+    Message storage is a time wheel `[wheel_rows, wheel_slots]` plus an
+    `[overflow_capacity]` lane; `wheel_rows=0` selects the flat store.
+    `capacity` is the total in-flight budget and sizes the wheel and
+    overflow defaults, as in the JAX package.  `batched_jumps` is
+    accepted for the JAX package's signature: an event-driven protocol
+    always runs the consensus-jump loop here, which the JAX package pins
+    bit-identical to its default loop."""
 
     def __init__(
         self,
@@ -157,37 +183,61 @@ class BatchedNetwork:
         latency: NetworkLatency,
         n_nodes: int,
         capacity: int = 1 << 14,
-        wheel_rows: int = 0,
+        wheel_rows: Optional[int] = None,
+        wheel_slots: Optional[int] = None,
+        overflow_capacity: Optional[int] = None,
         telemetry=None,
         faults=None,
         batched_jumps: bool = False,
         device=None,
     ):
-        if wheel_rows != 0:
-            raise NotImplementedError("the port runs the flat store only (wheel_rows=0)")
         if telemetry is not None:
             raise NotImplementedError("telemetry is not ported")
         if faults is not None:
             raise NotImplementedError("fault injection is not ported")
-        if batched_jumps:
-            raise NotImplementedError("batched consensus jumps are not ported")
-        if protocol.TICK_INTERVAL != 1:
-            raise NotImplementedError("the port runs per-ms ticking protocols only")
+        if protocol.TICK_INTERVAL not in (1, None):
+            raise NotImplementedError(
+                "the port runs per-ms (TICK_INTERVAL 1) and event-driven "
+                "(TICK_INTERVAL None) protocols only"
+            )
         self.device = resolve_device(device)
         self.protocol = protocol
         self.latency = latency
         self.n_nodes = n_nodes
         self.capacity = capacity
+        self.jump_stats = None  # set by each event-driven run
         self.payload_width = protocol.PAYLOAD_WIDTH
         sizes = [protocol.msg_size(t) for t in range(protocol.n_msg_types())]
         self._msg_sizes_host = np.asarray(sizes, dtype=np.int32)
         self._msg_sizes = torch.tensor(sizes, dtype=torch.int32, device=self.device)
         self.lanes = lane_plan(n_nodes, protocol.n_msg_types())
-        # flat mode: a degenerate 1x1 wheel keeps the state's shape the JAX
-        # package's; inserts never target it
-        self.wheel_rows = 1
-        self.wheel_slots = 1
-        self.overflow_capacity = capacity
+        if wheel_rows is None:
+            wheel_rows = DEFAULT_WHEEL_ROWS
+        self.flat = wheel_rows == 0
+        if self.flat:
+            # a degenerate 1x1 wheel keeps the state's shape the JAX
+            # package's; inserts never target it
+            self.wheel_rows = 1
+            self.wheel_slots = 1
+            self.overflow_capacity = capacity if overflow_capacity is None else overflow_capacity
+        else:
+            if wheel_rows % 32:
+                raise ValueError(
+                    f"wheel_rows={wheel_rows} must be a multiple of 32 "
+                    "(occupancy is scanned as packed 32-bit words)"
+                )
+            self.wheel_rows = wheel_rows
+            self.wheel_slots = (
+                max(64, -(-2 * capacity // wheel_rows)) if wheel_slots is None else wheel_slots
+            )
+            # capped: the lane is scanned every tick, so its size must not
+            # scale with the total capacity
+            self.overflow_capacity = (
+                max(128, min(1024, capacity // 8))
+                if overflow_capacity is None
+                else overflow_capacity
+            )
+        self._window()  # a quantum wider than the wheel fails here
 
     # -- state construction (host-side) -------------------------------------
     def init_state(self, cols: dict, seed: int, proto: Any, down=None) -> SimState:
@@ -262,8 +312,18 @@ class BatchedNetwork:
         dropped sends, Network.java:476-477), samples the latency model via
         the counter RNG, applies the partition and down filters (the JAX
         package's discard-time filter has no caller and is not ported).
-        mask is [R, K]; send_time an int or [R] tensor; mtype an int or a
-        per-row tensor.  Returns (state, ok, arrival)."""
+        mask is [R, K]; send_time an int or a tensor that broadcasts to
+        [R, K]; mtype an int or a per-row tensor.  Returns
+        (state, ok, arrival)."""
+        state = state._replace(send_ctr=state.send_ctr + 1)
+        return self._send_rows(state, mask, from_idx, to_idx, send_time, mtype,
+                               state.send_ctr[:, None])
+
+    def _send_rows(self, state, mask, from_idx, to_idx, send_time, mtype, ctr):
+        """latency_arrivals' body, with the send counter each row hashes
+        given as `ctr` (broadcasting to [R, K]) and send_ctr left as it is:
+        rows of several emissions go through in one call, each row with
+        its own emission's counter."""
         r, k = mask.shape
         from_idx = from_idx.to(torch.int32).expand(r, k)
         to_idx = to_idx.to(torch.int32).expand(r, k)
@@ -273,12 +333,11 @@ class BatchedNetwork:
         else:
             size = int(self._msg_sizes_host[int(mtype)])
         if isinstance(send_time, torch.Tensor):
-            send_time = send_time.to(torch.int32)[:, None]
+            send_time = send_time.to(torch.int32).expand(r, k)
         m32 = mask.to(torch.int32)
         state = state._replace(
             msg_sent=add_at(state.msg_sent, from_idx, m32),
             bytes_sent=add_at(state.bytes_sent, from_idx, m32 * size),
-            send_ctr=state.send_ctr + 1,
         )
         # per-event seed: send_ctr decorrelates same-tick emissions, the
         # destination id the rows of one emission (the JAX package's
@@ -288,7 +347,7 @@ class BatchedNetwork:
             send_time,
             from_idx,
             mtype,
-            state.send_ctr[:, None],
+            ctr,
             to_idx,
         )
         delta = pseudo_delta(to_idx, seed)
@@ -306,33 +365,103 @@ class BatchedNetwork:
         return state, ok, arrival
 
     def apply_emission(self, state: SimState, em: Emission, t: int) -> SimState:
-        """Scatter an emission's ok-rows into the flat store: the k-th ok row
-        takes the k-th free overflow slot; only a genuinely full store
-        drops, and it drops the new rows, counted in `dropped`."""
+        """Scatter one emission's ok-rows into the message store (see
+        apply_emissions)."""
+        return self.apply_emissions(state, [em], t)
+
+    def apply_emissions(self, state: SimState, emissions, t: int) -> SimState:
+        """Scatter a tick's emissions into the message store: wheel bucket
+        `eff_arrival mod W` when the arrival is inside the horizon
+        (t, t+W], the overflow lane otherwise or on full-row spill.  Wheel
+        rows stay a dense prefix, so the next free slot is whl_fill[row]
+        plus the same-row rank.  In the overflow lane the k-th ok row
+        takes the k-th free slot; only a genuinely full store drops, and
+        it drops the new rows, counted in `dropped`.
+
+        The JAX package applies emissions one at a time; here the
+        emissions' rows go through the send path and the insert together,
+        concatenated in emission order, with the same result:
+          * each emission that draws latencies takes the next send_ctr
+            value, and its rows hash that value, as they would one by one
+            (an explicit-arrival emission takes none); the sender counters
+            are integer adds, whose order does not matter;
+          * ranks, free-slot order and drops of the concatenation are
+            those of the sequential inserts — a row an earlier emission
+            filled rejects the later rows either way.
+        So the store is copied once per tick instead of once per emission,
+        and the hash runs once over all rows."""
+        rows = [self._emission_rows(em, t) for em in emissions]
+        if not rows:
+            return state
+        drawn = [rw for rw in rows if rw["arrival"] is None]
+        if drawn:
+            def cat(f):
+                return torch.cat([rw[f] for rw in drawn], dim=1)
+
+            ctr = torch.cat([
+                torch.full_like(rw["mask"], j + 1, dtype=torch.int32)
+                for j, rw in enumerate(drawn)
+            ], dim=1)
+            state, ok, arrival = self._send_rows(
+                state, cat("mask"), cat("from_idx"), cat("to_idx"), cat("send_time"),
+                cat("mtype"), state.send_ctr[:, None] + ctr,
+            )
+            state = state._replace(send_ctr=state.send_ctr + len(drawn))
+            sizes = [rw["mask"].shape[1] for rw in drawn]
+            for rw, o, a in zip(drawn, ok.split(sizes, 1), arrival.split(sizes, 1)):
+                rw["ok"], rw["arrival"] = o, a
+        fields = ("ok", "arrival", "from_idx", "to_idx", "mtype", "payload")
+        cols = [
+            torch.cat([rw[f] for rw in rows], dim=1) if rows[0][f] is not None else None
+            for f in fields
+        ]
+        return self._insert(state, t, *cols)
+
+    def _emission_rows(self, em: Emission, t: int) -> dict:
+        """One emission's rows, [R, K] each (payload [R, K, P] or None);
+        `arrival` is None until the send path draws it."""
         r, k = em.mask.shape
-        v = self.overflow_capacity
         dev = em.mask.device
         send_time = em.send_time if em.send_time is not None else t + 1
-        mask = em.mask
-        from_idx = em.from_idx.to(torch.int32).expand(r, k)
-        to_idx = em.to_idx.to(torch.int32).expand(r, k)
+        if not isinstance(send_time, torch.Tensor):
+            send_time = torch.tensor(int(send_time), dtype=torch.int32, device=dev)
         mtype = em.mtype
-        if em.arrival is not None:
-            # sendArriveAt: explicit arrival, no latency model and no
-            # sender counters (Network.java:419-422)
-            arrival = em.arrival.to(torch.int32).expand(r, k)
-            ok = mask
-        else:
-            state, ok, arrival = self.latency_arrivals(
-                state, mask, from_idx, to_idx, send_time, mtype
+        if not isinstance(mtype, torch.Tensor):
+            mtype = torch.tensor(int(mtype), dtype=torch.int32, device=dev)
+        payload = None
+        if self.payload_width:
+            payload = (
+                em.payload.to(torch.int32).expand(r, k, self.payload_width)
+                if em.payload is not None
+                else torch.zeros((r, k, self.payload_width), dtype=torch.int32, device=dev)
             )
-        mtype_rows = (
-            mtype.to(torch.int32).expand(r, k)
-            if isinstance(mtype, torch.Tensor)
-            else torch.full((r, k), int(mtype), dtype=torch.int32, device=dev)
-        )
+        return {
+            "mask": em.mask,
+            # sendArriveAt: an explicit arrival skips the latency model and
+            # the sender counters (Network.java:419-422)
+            "ok": em.mask if em.arrival is not None else None,
+            "arrival": None if em.arrival is None else em.arrival.to(torch.int32).expand(r, k),
+            "from_idx": em.from_idx.to(torch.int32).expand(r, k),
+            "to_idx": em.to_idx.to(torch.int32).expand(r, k),
+            "send_time": send_time.to(torch.int32).expand(r, k),
+            "mtype": mtype.to(torch.int32).expand(r, k),
+            "payload": payload,
+        }
+
+    def _insert(self, state, t, ok, arrival, from_idx, to_idx, mtype_rows, payload):
+        """The store insert of apply_emissions over [R, K] rows."""
+        r, k = ok.shape
+        v = self.overflow_capacity
+        dev = ok.device
         n_ok = ok.sum(-1).to(torch.int32)
-        to_ovf = ok
+
+        if self.flat:
+            to_ovf = ok
+        else:
+            state, fits = self._wheel_insert(
+                state, t, ok, arrival, from_idx, to_idx, mtype_rows, payload
+            )
+            to_ovf = ok & ~fits  # beyond the horizon, or full-row spill
 
         # pack into FREE slots: the k-th ok row takes the k-th invalid slot
         free = ~state.ovf_valid  # [R, V]
@@ -367,59 +496,117 @@ class BatchedNetwork:
         )
         if self.payload_width:
             p = self.payload_width
-            payload = (
-                em.payload
-                if em.payload is not None
-                else torch.zeros((r, k, p), dtype=torch.int32, device=dev)
-            )
             ext = torch.cat([state.ovf_payload, state.ovf_payload[:, :1]], dim=1)
-            ext = ext.scatter(1, pos[..., None].expand(r, k, p), payload.to(torch.int32))
+            ext = ext.scatter(1, pos[..., None].expand(r, k, p), payload)
             state = state._replace(ovf_payload=ext[:, :v])
         return state
 
-    def apply_emissions(self, state: SimState, emissions, t: int) -> SimState:
-        for em in emissions:
-            state = self.apply_emission(state, em, t)
-        return state
+    def _wheel_insert(self, state, t, ok, arrival, from_idx, to_idx, mtype_rows, payload):
+        """The wheel half of apply_emission; returns (state, fits)."""
+        r, k = ok.shape
+        w, b = self.wheel_rows, self.wheel_slots
+        dev = ok.device
+        # routing tick: stale arrivals (<= t, possible via explicit
+        # arrivals after a clock skip) deliver next tick like the flat
+        # store; arrival == t + W is safe because the current row is
+        # delivered and cleared before emissions are applied
+        eff = torch.clamp(arrival, min=t + 1)
+        cand = ok & (eff <= t + w)
+        row = torch.remainder(eff, w).to(torch.int64)
+        # same-row rank: stable sort, then each entry's distance from the
+        # first entry of its row (ties take distinct slots in row order)
+        rkey = torch.where(cand, row, w)
+        rsort, order = torch.sort(rkey, dim=1, stable=True)
+        pos_sorted = torch.arange(k, device=dev) - torch.searchsorted(rsort, rsort)
+        rank = torch.empty_like(order).scatter_(1, order, pos_sorted)
+        slot = torch.gather(state.whl_fill, 1, torch.where(cand, row, 0)) + rank
+        fits = cand & (slot < b)
+        # positions in the flattened [R, W, B] wheel; rows that do not fit
+        # go to set_rows' trash block
+        cell = (torch.arange(r, device=dev)[:, None] * w + row) * b + slot
+        cell, keep = cell.reshape(-1, 1), fits.reshape(-1)
+
+        def put(col, vals):
+            return set_rows(col, cell, vals.reshape(-1, 1), keep)
+
+        fill = torch.cat([state.whl_fill, state.whl_fill.new_zeros(r, 1)], dim=1)
+        fill = fill.scatter_add(1, torch.where(fits, row, w), fits.to(torch.int32))
+        state = state._replace(
+            msg_valid=put(state.msg_valid, torch.ones_like(ok)),
+            msg_arrival=put(state.msg_arrival, arrival),
+            msg_from=put(state.msg_from, from_idx),
+            msg_to=put(state.msg_to, to_idx),
+            msg_type=put(state.msg_type, mtype_rows),
+            whl_fill=fill[:, :w].contiguous(),
+        )
+        if self.payload_width:
+            p = self.payload_width
+            pcell = cell * p + torch.arange(p, device=dev)
+            state = state._replace(
+                msg_payload=set_rows(state.msg_payload, pcell, payload.reshape(-1, p), keep)
+            )
+        return state, fits
 
     # -- delivery ------------------------------------------------------------
+    def _window(self) -> int:
+        """Wheel rows gathered per step: TIME_QUANTUM consecutive rows, so
+        a quantum-coarsened step delivers its whole window (t-q, t] at
+        once; 1 in flat mode (the overflow scan is already exact)."""
+        if self.flat:
+            return 1
+        q = max(1, int(self.protocol.TIME_QUANTUM))
+        if q > self.wheel_rows:
+            raise ValueError(
+                f"TIME_QUANTUM={q} exceeds wheel_rows={self.wheel_rows}; "
+                "raise wheel_rows or use flat mode (wheel_rows=0)"
+            )
+        return q
+
     def delivery_view(self, state: SimState, t: int):
         """The flat delivery VIEW protocol.deliver sees: msg_* columns are
-        [R, D] concatenations of the (never occupied) wheel row and the
-        overflow lane, ids and types widened to int32.  Returns
-        (vstate, due, deliver): `due` is arrival <= t, `deliver`
-        additionally applies the delivery-time down/partition discards
-        (Network.java:606, :518-520)."""
+        [R, D] concatenations of the window's wheel rows and the overflow
+        lane, ids and types widened to int32 (the one widening point of
+        the narrow-lane plan).  Returns (vstate, due, deliver, rows):
+        `due` is arrival <= t, `deliver` additionally applies the
+        delivery-time down/partition discards (Network.java:606,
+        :518-520), `rows` are the window's wheel rows."""
         r = state.ovf_valid.shape[0]
-        view_valid = torch.cat([state.msg_valid.reshape(r, -1), state.ovf_valid], 1)
-        view_arrival = torch.cat([state.msg_arrival.reshape(r, -1), state.ovf_arrival], 1)
-        view_from = torch.cat([state.msg_from.reshape(r, -1), state.ovf_from], 1).to(torch.int32)
-        view_to = torch.cat([state.msg_to.reshape(r, -1), state.ovf_to], 1).to(torch.int32)
-        view_type = torch.cat([state.msg_type.reshape(r, -1), state.ovf_type], 1).to(torch.int32)
-        view_payload = torch.cat(
-            [state.msg_payload.reshape(r, self.wheel_rows * self.wheel_slots, self.payload_width),
-             state.ovf_payload], 1
+        # the q distinct rows covering ticks (t-q, t]: floor modulo, since
+        # t - q + 1 is negative near t = 0
+        q = self._window()
+        rows = torch.remainder(
+            torch.arange(t - q + 1, t + 1, dtype=torch.int64, device=self.device),
+            self.wheel_rows,
         )
-        due = view_valid & (view_arrival <= t)
+        nq = q * self.wheel_slots
+
+        def view(wheel, ovf):
+            win = wheel.index_select(1, rows)
+            return torch.cat([win.reshape((r, nq) + tuple(wheel.shape[3:])), ovf], 1)
+
+        view_from = view(state.msg_from, state.ovf_from).to(torch.int32)
+        view_to = view(state.msg_to, state.ovf_to).to(torch.int32)
+        view_arrival = view(state.msg_arrival, state.ovf_arrival)
+        due = view(state.msg_valid, state.ovf_valid) & (view_arrival <= t)
         pid_f = self.partition_id(state, take(state.x, view_from))
         pid_t = self.partition_id(state, take(state.x, view_to))
         deliver = due & ~take(state.down, view_to) & (pid_f == pid_t)
         vstate = state._replace(
-            msg_valid=view_valid,
+            msg_valid=view(state.msg_valid, state.ovf_valid),
             msg_arrival=view_arrival,
             msg_from=view_from,
             msg_to=view_to,
-            msg_type=view_type,
-            msg_payload=view_payload,
+            msg_type=view(state.msg_type, state.ovf_type).to(torch.int32),
+            msg_payload=view(state.msg_payload, state.ovf_payload),
         )
-        return vstate, due, deliver
+        return vstate, due, deliver, rows
 
     def _deliver_and_clear(self, state: SimState, t: int):
         """One tick's delivery (the JAX package's fused form): gather the
         view, tick receiver counters (size-0 task types skipped,
         Network.java:522-526), run protocol.deliver on it, then clear the
         delivered entries.  Returns (state, emissions)."""
-        vview, due, deliver = self.delivery_view(state, t)
+        vview, due, deliver, rows = self.delivery_view(state, t)
         view_to, view_type = vview.msg_to, vview.msg_type
         sizes = self._msg_sizes[view_type.to(torch.int64)]
         dm = (deliver & (sizes > 0)).to(torch.int32)
@@ -428,25 +615,61 @@ class BatchedNetwork:
             bytes_received=add_at(state.bytes_received, view_to, dm * sizes),
         )
         pstate, emissions = self.protocol.deliver(self, vstate, deliver, t)
-        # flat mode: the degenerate wheel row is all-due by construction, so
-        # the clear is a constant fill; the overflow lane drops its due rows
-        nb = state.msg_valid[0].numel()
-        state = pstate._replace(
-            msg_valid=torch.zeros_like(state.msg_valid),
-            msg_arrival=torch.full_like(state.msg_arrival, INT_MAX),
-            msg_from=torch.zeros_like(state.msg_from),
-            msg_to=torch.zeros_like(state.msg_to),
-            msg_type=torch.zeros_like(state.msg_type),
-            msg_payload=torch.zeros_like(state.msg_payload),
-            whl_fill=torch.zeros_like(state.whl_fill),
-            ovf_valid=state.ovf_valid & ~due[:, nb:],
+        return self._clear_visited_rows(pstate, state, rows, due), emissions
+
+    def _clear_visited_rows(self, pstate, state, rows, due) -> SimState:
+        """Clear the due entries of the window's wheel rows and the
+        overflow lane, and repack each row's surviving entries to its slot
+        prefix so whl_fill stays the next free slot.  The wheel fields come
+        from the pre-view `state`, everything else from the protocol's
+        `pstate`.
+
+        This is the JAX package's exact repack, for every window.  Its
+        fused step replaces it, for a one-row window, by an empty-row fill
+        that assumes every valid entry of the row is due; that holds for
+        entries inserted inside a step, but an entry inserted before the
+        first step at arrival t + W (by init_state, or a caller's
+        apply_emission) sits in row t mod W unexpired and the fill loses
+        it.  Where the assumption holds the two agree bit for bit."""
+        r = state.ovf_valid.shape[0]
+        q, b = rows.numel(), self.wheel_slots
+        keep = state.msg_valid.index_select(1, rows) & ~due[:, : q * b].reshape(r, q, b)
+        pos = keep.to(torch.int32).cumsum(2) - 1
+        tgt = torch.where(keep, pos, b)  # past the end: the trash slot
+
+        def repack(col, fill_value):
+            win = col.index_select(1, rows)  # [R, q, B, ...]
+            out = torch.full(
+                (r, q, b + 1) + tuple(win.shape[3:]), fill_value,
+                dtype=win.dtype, device=win.device,
+            )
+            idx = tgt.view(tgt.shape + (1,) * (win.dim() - 3)).expand(win.shape)
+            return out.scatter_(2, idx, win)[:, :, :b]
+
+        def set_window(col, vals):
+            out = col.clone()
+            out[:, rows] = vals
+            return out
+
+        # kept entries are valid, so repacking msg_valid itself gives the
+        # JAX package's `.at[tgt].set(keep)`
+        wheel = {"msg_valid": False, "msg_arrival": INT_MAX, "msg_from": 0, "msg_to": 0,
+                 "msg_type": 0}
+        if self.payload_width:
+            wheel["msg_payload"] = 0
+        upd = {f: set_window(getattr(state, f), repack(getattr(state, f), v))
+               for f, v in wheel.items()}
+        upd.setdefault("msg_payload", state.msg_payload)
+        return pstate._replace(
+            **upd,
+            whl_fill=set_window(state.whl_fill, keep.sum(2).to(torch.int32)),
+            ovf_valid=state.ovf_valid & ~due[:, q * b:],
             ovf_arrival=state.ovf_arrival,
             ovf_from=state.ovf_from,
             ovf_to=state.ovf_to,
             ovf_type=state.ovf_type,
             ovf_payload=state.ovf_payload,
         )
-        return state, emissions
 
     # -- one millisecond (receiveUntil body, Network.java:586-632) -----------
     def _step_core(self, state: SimState, t: int) -> SimState:
@@ -477,13 +700,99 @@ class BatchedNetwork:
         t = self.lockstep_time(states)
         return self._tick(states, t)._replace(time=states.time + 1)
 
+    # -- occupancy summaries --------------------------------------------------
+    def _wheel_next_arrival(self, state: SimState, t: int) -> torch.Tensor:
+        """Earliest tick >= t with an occupied wheel row, per replica
+        (INT_MAX if none): the occupancy bitmap (whl_fill > 0) rotated to
+        start at tick t, packed into words, then a lowest-set-bit scan —
+        O(W) instead of a min over all W*B slots.  Row candidates equal
+        the true arrival for in-horizon entries and never overshoot for
+        stale ones, so jumps never skip a pending message."""
+        occ = state.whl_fill > 0  # [R, W]
+        rot = torch.roll(occ, shifts=-(t % self.wheel_rows), dims=1)
+        d = lowest_set_bit(pack_bool_words(rot))
+        # an empty row reads 32 from lowest_set_bit: the any() guard decides
+        return torch.where(occ.any(1), t + d, INT_MAX).to(torch.int32)
+
+    def pending_messages(self, state: SimState) -> torch.Tensor:
+        """Quiescence summary per replica: occupied wheel rows (popcount
+        over the packed occupancy words) plus live overflow entries.  Zero
+        iff no message is pending — the DES "event queue empty" test."""
+        ovf = state.ovf_valid.sum(-1).to(torch.int32)
+        if self.flat:
+            return ovf
+        return popcount_words(pack_bool_words(state.whl_fill > 0)) + ovf
+
+    def occupancy(self, state: SimState) -> dict:
+        """Observability: each replica's wheel-fill high-water and overflow
+        census of the current state."""
+        return {
+            "wheel_fill_max": state.whl_fill.amax(-1),
+            "overflow_count": state.ovf_valid.sum(-1).to(torch.int32),
+        }
+
+    def _step_jump(self, state: SimState, t: int, ends: torch.Tensor) -> SimState:
+        """One full tick at t, then each replica jumps to its own next
+        arrival: the wheel's occupancy-word scan plus a min over the small
+        overflow lane, clipped to [t+1, end] and, for TIME_QUANTUM q > 1,
+        rounded up to the quantum grid so a whole window of arrivals is
+        delivered in one step (each delayed < q ms)."""
+        state = self._tick(state, t)
+        ovf_next = torch.where(state.ovf_valid, state.ovf_arrival, INT_MAX).amin(-1)
+        nxt = ovf_next
+        if not self.flat:
+            nxt = torch.minimum(self._wheel_next_arrival(state, t + 1), ovf_next)
+        nxt = torch.minimum(torch.clamp(nxt, min=t + 1), ends)
+        q = self.protocol.TIME_QUANTUM
+        if q > 1:
+            nxt = torch.minimum(torch.div(nxt + q - 1, q, rounding_mode="floor") * q, ends)
+        return state._replace(time=nxt.to(torch.int32))
+
+    def _run_ms_jumps(self, states: SimState, ms: int, stop_when_done: bool) -> SimState:
+        """The consensus-jump loop for event-driven protocols (the JAX
+        package's _run_ms_batched_jumps): every iteration executes ONE
+        replica-uniform tick t — the minimum clock over replicas still
+        running, a host int from one device read — and the replicas whose
+        clock is t take the step; the others are computed and discarded,
+        keeping their state (send_ctr included, so their RNG streams do
+        not move).  A replica steps iff t equals its own clock, and its
+        clock moves only when it steps, so each replica executes exactly
+        its own tick set; the JAX package pins this bit-identical to its
+        default per-replica loop.  A replica stops at its horizon
+        time + ms, or with stop_when_done once its all_done holds or no
+        message is pending; every clock ends at its horizon.
+
+        Observability: afterwards `jump_stats` holds the run's iteration
+        count and each replica's last executed tick (-1 if none) — with
+        stop_when_done, the tick its outcome was decided."""
+        proto = self.protocol
+        ends = states.time + ms
+        last_tick = torch.full_like(states.time, -1)
+        s, iterations = states, 0
+        while True:
+            alive = s.time < ends
+            if stop_when_done:
+                alive = alive & ~proto.all_done(s) & (self.pending_messages(s) > 0)
+            t = int(torch.where(alive, s.time, INT_MAX).amin())
+            if t == INT_MAX:
+                break
+            active = alive & (s.time == t)
+            s = _lane_select(active, self._step_jump(s, t, ends), s)
+            last_tick = torch.where(active, t, last_tick)
+            iterations += 1
+        self.jump_stats = {"iterations": iterations, "last_tick": last_tick}
+        return s._replace(time=ends)
+
     # -- the loops -------------------------------------------------------------
     def run_ms(self, states: SimState, ms: int, stop_when_done: bool = False) -> SimState:
         """Advance `ms` simulated milliseconds (ticks [time, time+ms)) on
         the ungated path: every tick runs tick_beat (the JAX package's
         vmapped `_run_ms_impl`).  stop_when_done stops each replica on its
         own once its `all_done` holds; its state freezes there while the
-        others step on.  The clock ends at time + ms either way."""
+        others step on.  The clock ends at time + ms either way.  An
+        event-driven protocol runs the consensus-jump loop instead."""
+        if self.protocol.TICK_INTERVAL is None:
+            return self._run_ms_jumps(states, ms, stop_when_done)
         t0 = self.lockstep_time(states)
         s = states
         for i in range(ms):
@@ -507,10 +816,12 @@ class BatchedNetwork:
         (engine/core.py:1344-1410 in the JAX package).
         stop_when_done stops the loop, before a tick, once every replica's
         all_done holds: one device read per tick, the tick the JAX
-        while_loop stops at.  Otherwise the ungated `run_ms` runs."""
+        while_loop stops at.  Otherwise the ungated `run_ms` runs, and an
+        event-driven protocol the consensus-jump loop."""
         proto = self.protocol
         period, residues = proto.BEAT_PERIOD, proto.BEAT_RESIDUES
-        if not period or residues is None or len(residues) >= period:
+        if proto.TICK_INTERVAL is None or not period or residues is None \
+                or len(residues) >= period:
             return self.run_ms(states, ms, stop_when_done)
         residues = frozenset(int(r) for r in residues)
         t0 = self.lockstep_time(states)

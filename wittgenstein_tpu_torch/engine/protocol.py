@@ -3,9 +3,11 @@
 The batched analog of core Protocol.java + Message.action: a protocol is a
 set of vectorized hooks over the struct-of-arrays state.  Every state
 tensor carries the replica axis R in front, and every hook that runs
-inside a tick receives the lockstep clock `t` as a host int (the engine
-asserts that all replicas share one time, so `t` is what the JAX
-package's hooks read from `state.time`).
+inside a tick receives the tick `t` it executes as a host int — what the
+JAX package's hooks read from `state.time`.  Per-ms protocols run in
+lockstep, so `t` is every replica's clock; on the event-driven loop it is
+the clock of the replicas that take the step (the others' results are
+discarded).  Hooks therefore read `t`, never `state.time`.
 """
 
 from __future__ import annotations
@@ -23,10 +25,14 @@ class BatchedProtocol:
 
     MSG_TYPES: List[str] = []
     PAYLOAD_WIDTH: int = 0
-    # the port runs per-ms ticking protocols only (TICK_INTERVAL 1); the
-    # JAX package's empty-ms jumps (TICK_INTERVAL None) come with the
-    # event-driven protocols in a later slice
+    # None = tick() does nothing time-sensitive, so the engine may skip
+    # empty milliseconds (jump to the next arrival); 1 = per-ms work.  The
+    # port runs these two.
     TICK_INTERVAL: int | None = 1
+    # Time coarsening for event-driven protocols (TICK_INTERVAL None):
+    # arrivals are delivered together at the next multiple of this grid,
+    # delaying each by < TIME_QUANTUM ms.  1 = exact arrival times.
+    TIME_QUANTUM: int = 1
     # Beat structure: periodic work that fires only when t % BEAT_PERIOD is
     # in BEAT_RESIDUES goes in tick_beat(), which the lockstep loop runs
     # only on beat ticks.  tick() must not include the beat work.
@@ -41,6 +47,9 @@ class BatchedProtocol:
 
     def n_msg_types(self) -> int:
         return max(1, len(self.MSG_TYPES))
+
+    def mtype(self, name: str) -> int:
+        return self.MSG_TYPES.index(name)
 
     def msg_size(self, mtype: int) -> int:
         """Bytes per message type (Message.size, Message.java:28 default 1)."""

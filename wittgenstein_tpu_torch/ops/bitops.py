@@ -8,8 +8,8 @@ space is the bit permutation j -> j ^ (r ^ s) (`xor_shuffle`).
 
 Words are uint32 in the JAX package.  Torch has no usable uint32
 arithmetic, so the port carries every word as an int32 tensor with the
-same bits.  `popcount_words` and `lowest_set_bit` dispatch on the
-tensor's device: a CUDA tensor launches the hand-written kernel
+same bits.  `popcount_words`, `lowest_set_bit` and `pack_bool_words`
+dispatch on the tensor's device: a CUDA tensor launches the hand-written kernel
 (ops/kernels.py, sources in ops/csrc), a CPU tensor runs the plain
 PyTorch version below.  There is no other route and no fallback.
 """
@@ -55,6 +55,38 @@ def lowest_set_bit_plain(words: torch.Tensor) -> torch.Tensor:
     wval = torch.gather(words, -1, widx[..., None]).to(torch.int64) & _M32
     low = ((wval & ((-wval) & _M32)) - 1) & _M32
     return (widx.to(torch.int32) * WORD + popcount_words_plain(low.to(torch.int32)))
+
+
+def pack_bool_words_plain(bits: torch.Tensor) -> torch.Tensor:
+    """Plain version of the pack kernel: [..., W] bool -> [..., ceil(W/32)]
+    int32 words, bit j of word k = element 32k + j, padding bits 0.  The
+    weighted sum runs in int64 so bit 31 does not overflow, then keeps the
+    low 32 bits as an int32 bit view."""
+    w = bits.shape[-1]
+    pad = (-w) % WORD
+    if pad:
+        bits = torch.cat([bits, bits.new_zeros(bits.shape[:-1] + (pad,))], dim=-1)
+    grouped = bits.reshape(bits.shape[:-1] + ((w + pad) // WORD, WORD))
+    weights = torch.ones(WORD, dtype=torch.int64, device=bits.device) << torch.arange(
+        WORD, dtype=torch.int64, device=bits.device
+    )
+    v = (grouped.to(torch.int64) * weights).sum(-1)
+    return (v - ((v >> 31) << 32)).to(torch.int32)
+
+
+def pack_bool_words(bits: torch.Tensor) -> torch.Tensor:
+    """Pack bools over the last axis into int32 words: [..., W] bool ->
+    [..., ceil(W/32)] (the engine's wheel-occupancy summary; pairs with
+    popcount_words and lowest_set_bit)."""
+    if bits.dtype != torch.bool:
+        raise TypeError(f"pack_bool_words takes bool, got {bits.dtype}")
+    if bits.dim() < 1:
+        raise ValueError("pack_bool_words needs a bit axis")
+    if bits.is_cuda:
+        return kernels.pack_bool_words(bits)
+    if bits.device.type != "cpu":
+        raise RuntimeError(f"no pack_bool_words for device {bits.device}")
+    return pack_bool_words_plain(bits)
 
 
 def popcount_words(words: torch.Tensor) -> torch.Tensor:

@@ -117,7 +117,12 @@ LOWEST_SET_BIT = CudaKernel(
     "lowest_set_bit.cu",
     "wittgenstein_tpu/ops/bitops_pallas.py:162 lowest_set_bit_pallas",
 )
-KERNELS = (POPCOUNT, LOWEST_SET_BIT)
+PACK_BOOL_WORDS = CudaKernel(
+    "pack_bool_words",
+    "pack_bool_words.cu",
+    "wittgenstein_tpu/ops/bitops_pallas.py:110 pack_bool_words_pallas",
+)
+KERNELS = (POPCOUNT, LOWEST_SET_BIT, PACK_BOOL_WORDS)
 
 
 def build_all() -> None:
@@ -140,35 +145,42 @@ def reset_launch_counts() -> None:
         k.launches = 0
 
 
-def _launch_rows(kernel: CudaKernel, words: torch.Tensor) -> torch.Tensor:
-    """Run a row kernel ([..., w] int32 words -> [...] int32) on the card."""
-    if not words.is_cuda:
-        raise RuntimeError(f"{kernel.name}: tensor is on {words.device}, not CUDA")
-    if words.dtype != torch.int32:
-        raise TypeError(f"{kernel.name}: words must be int32, got {words.dtype}")
-    if words.dim() < 1 or words.shape[-1] < 1:
-        raise ValueError(f"{kernel.name}: need a non-empty word axis, got {tuple(words.shape)}")
-    if words.device.index != torch.cuda.current_device():
+def _check_operand(kernel: CudaKernel, x: torch.Tensor, dtype: torch.dtype) -> None:
+    """Device, dtype and shape checks shared by every wrapper."""
+    if not x.is_cuda:
+        raise RuntimeError(f"{kernel.name}: tensor is on {x.device}, not CUDA")
+    if x.dtype != dtype:
+        raise TypeError(f"{kernel.name}: operand must be {dtype}, got {x.dtype}")
+    if x.dim() < 1 or x.shape[-1] < 1:
+        raise ValueError(f"{kernel.name}: need a non-empty last axis, got {tuple(x.shape)}")
+    if x.device.index != torch.cuda.current_device():
         raise RuntimeError(
-            f"{kernel.name}: tensor on {words.device}, current device is "
+            f"{kernel.name}: tensor on {x.device}, current device is "
             f"cuda:{torch.cuda.current_device()}"
         )
-    w = words.shape[-1]
-    if w > 2**31 - 1:
-        raise ValueError(f"{kernel.name}: word axis {w} too wide")
-    lead = words.shape[:-1]
-    out = torch.empty(lead, dtype=torch.int32, device=words.device)
-    m = out.numel()
+    if x.shape[-1] > 2**31 - 1:
+        raise ValueError(f"{kernel.name}: last axis {x.shape[-1]} too wide")
+
+
+def _launch(kernel: CudaKernel, x: torch.Tensor, out: torch.Tensor, m: int) -> torch.Tensor:
+    """Launch `kernel` over the m rows of x into out on the current stream."""
     if m == 0:
         return out
     # broadcast or strided operands become dense rows before the launch
-    words = words.contiguous()
-    stream = torch.cuda.current_stream(words.device).cuda_stream
-    err = kernel.fn()(words.data_ptr(), out.data_ptr(), m, w, stream)
+    x = x.contiguous()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = kernel.fn()(x.data_ptr(), out.data_ptr(), m, x.shape[-1], stream)
     if err != 0:
         raise RuntimeError(f"{kernel.name}: CUDA launch failed with error {err}")
     kernel.launches += 1
     return out
+
+
+def _launch_rows(kernel: CudaKernel, words: torch.Tensor) -> torch.Tensor:
+    """Run a row kernel ([..., w] int32 words -> [...] int32) on the card."""
+    _check_operand(kernel, words, torch.int32)
+    out = torch.empty(words.shape[:-1], dtype=torch.int32, device=words.device)
+    return _launch(kernel, words, out, out.numel())
 
 
 def popcount_words(words: torch.Tensor) -> torch.Tensor:
@@ -179,3 +191,12 @@ def popcount_words(words: torch.Tensor) -> torch.Tensor:
 def lowest_set_bit(words: torch.Tensor) -> torch.Tensor:
     """CUDA kernel: lowest set bit of each row of [..., w] int32 words."""
     return _launch_rows(LOWEST_SET_BIT, words)
+
+
+def pack_bool_words(bits: torch.Tensor) -> torch.Tensor:
+    """CUDA kernel: [..., W] bool -> [..., ceil(W/32)] int32 words (torch
+    bool is one byte, which the kernel reads as uint8)."""
+    _check_operand(PACK_BOOL_WORDS, bits, torch.bool)
+    lead, w = bits.shape[:-1], bits.shape[-1]
+    out = torch.empty(lead + ((w + 31) // 32,), dtype=torch.int32, device=bits.device)
+    return _launch(PACK_BOOL_WORDS, bits, out, out.numel() // out.shape[-1])
