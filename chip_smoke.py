@@ -10,8 +10,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 sm_90a, one nvcc per source, all started together
   3. kernels    hold each kernel equal to its plain PyTorch version on the
                 card over odd shapes, all-zero / all-ones / top-bit rows and
-                the main paths' shapes; time kernel, plain version and
-                bound at the main paths' shapes (pack_bool_words also at
+                the main paths' shapes — the fused forms (popcount_binop,
+                cand_score, lowest_set_bit_andnot) also over the three ops,
+                broadcast on either side, sliced rows like _commit's sig_b
+                and K in {1, 2, 8}; time kernel, plain version and bound at
+                the main paths' shapes, the popcount family at every width
+                bucket of the flagship (pack_bool_words also at
                 [262144, 512], for bandwidth)
   4. identity   the port on the CPU (plain versions) and on CUDA (kernels)
                 give identical state in every leaf: batched Handel at 64
@@ -21,12 +25,16 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
   5. flagship   the Handel main path: make_handel(flagship_params(4096)),
                 replicate_state(R=16), run_ms_batched in 20-ms chunks up to
                 1000 ms with stop_when_done; every live node must finish and
-                the popcount kernel must have launched in this run
+                popcount_words, popcount_binop and cand_score must have
+                launched in this run
   6. profile    a 10-tick torch.profiler window of the flagship (after 100
                 warm ticks): kernels and device time per tick, the device's
-                busy share of a tick, the ops that take the device time
-  7. byzantine  4096 nodes, 1024 down, byzantine_suicide, R=4, 1000 ms; the
-                lowest-set-bit kernel must have launched in this run
+                busy share of a tick, the ops that take the device time and
+                each hand-written kernel's device time by name
+  7. byzantine  4096 nodes, 1024 down, byzantine_suicide, R=4, 1000 ms;
+                lowest_set_bit_andnot must have launched in this run; then
+                lowest_set_bit and lowest_set_bit_andnot are timed on the
+                run's own eligibility rows (byz, bl) of every width bucket
   8. pingpong   the event-driven main path: make_pingpong(1000), R=4096,
                 run_ms_batched(700, stop_when_done) on the time wheel and
                 the consensus-jump loop; every witness must count 1000
@@ -44,6 +52,7 @@ The last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -56,11 +65,12 @@ from wittgenstein_tpu_torch.interop import state_to_numpy
 from wittgenstein_tpu_torch.ops import bitops, kernels
 from wittgenstein_tpu_torch.protocols.dfinity_batched import make_dfinity
 from wittgenstein_tpu_torch.protocols.handel import HandelParameters, flagship_params
-from wittgenstein_tpu_torch.protocols.handel_batched import make_handel
+from wittgenstein_tpu_torch.protocols.handel_batched import BatchedHandel, make_handel
 from wittgenstein_tpu_torch.protocols.pingpong_batched import make_pingpong
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak (NVIDIA data sheet, at 700 W)
 INT_OPS_PER_S = 67e12  # 32-bit rate outside the tensor cores (same sheet's fp32)
+FLAGSHIP_NODES = 4096
 FLAGSHIP_REPLICAS = 16
 BYZ_REPLICAS = 4
 CHUNK_MS = 20
@@ -100,8 +110,8 @@ def build() -> None:
     t0 = time.perf_counter()
     kernels.build_all()
     regs = {
-        k.name: [ln.strip() for ln in k.build_log.splitlines() if "registers" in ln]
-        for k in kernels.KERNELS
+        lib.source.name: [ln.strip() for ln in lib.build_log.splitlines() if "registers" in ln]
+        for lib in kernels.LIBRARIES
     }
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": regs})
 
@@ -142,6 +152,11 @@ def _check_cases(gen: torch.Generator):
             yield torch.zeros(rows + (w,), dtype=torch.int32, device=dev)
             yield torch.full(rows + (w,), -1, dtype=torch.int32, device=dev)
             yield torch.full(rows + (w,), -(2**31), dtype=torch.int32, device=dev)
+    # contiguous rows that start off a 16-byte boundary take the word path
+    flat = torch.randint(-(2**31), 2**31, (4 * 257 + 1,), generator=gen,
+                         dtype=torch.int64).to(torch.int32).to(dev)
+    for w in (1, 2, 4):
+        yield flat[1 : 1 + 257 * w].view(257, w)
     # a broadcast (stride-0) operand goes through the contiguity path
     row = torch.randint(-(2**31), 2**31, (1, 64), generator=gen,
                         dtype=torch.int64).to(torch.int32).to(dev)
@@ -161,45 +176,24 @@ def check_kernel(kernel, fn, plain, main_shape, gen) -> dict:
             raise AssertionError(f"{kernel.name} disagrees with its plain version "
                                  f"at {tuple(x.shape)}: max |err| {err}")
         worst = max(worst, err)
-    x = torch.randint(-(2**31), 2**31, main_shape, generator=gen,
-                      dtype=torch.int64).to(torch.int32).cuda()
     if kernel is kernels.LOWEST_SET_BIT:
-        # Byzantine eligibility rows are sparse: a few set bits per row
-        x = torch.where(torch.rand(main_shape, generator=gen).cuda() < 0.02, x, 0)
+        # occupancy rows are sparse: about 2% of the wheel's rows hold mail
+        occupied = torch.rand(main_shape[:-1] + (32 * main_shape[-1],), generator=gen) < 0.02
+        x = bitops.pack_bool_words_plain(occupied).cuda()
+    else:
+        x = torch.randint(-(2**31), 2**31, main_shape, generator=gen,
+                          dtype=torch.int64).to(torch.int32).cuda()
     got, want = fn(x), plain(x)
     torch.cuda.synchronize()
     err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
     if err:
         raise AssertionError(f"{kernel.name} disagrees at the main-path shape: {err}")
     m, w = int(np.prod(main_shape[:-1])), main_shape[-1]
-    if kernel is kernels.LOWEST_SET_BIT:
-        # data-dependent work: a row is read up to its first nonzero word
-        first = torch.argmax((x != 0).to(torch.uint8), dim=-1)
-        empty = (x == 0).all(-1)
-        words_read = int(torch.where(empty, w, first + 1).sum())
-    else:
-        words_read = m * w
-    bytes_moved = 4 * words_read + 4 * m
-    ops = 2 * words_read
-    bound_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    bound_ops = ops / INT_OPS_PER_S * 1e3
-    kernel_ms = graph_ms(lambda: fn(x))
-    plain_ms = graph_ms(lambda: plain(x))
-    return {
-        "name": kernel.name,
-        "route": "cuda",
-        "source": f"wittgenstein_tpu_torch/ops/csrc/{kernel.source.name}",
-        "replaces": kernel.replaces,
-        "max_abs_err": worst,
-        "shape": list(main_shape),
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(bound_bytes, bound_ops),
-        "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
-        "library_ms": None,
-        "bytes": bytes_moved,
-        "gb_per_s": bytes_moved / (kernel_ms * 1e-3) / 1e9,
-    }
+    # lowest_set_bit's work depends on the data: a row is read up to its
+    # first nonzero word
+    words = _words_to_first(x) if kernel is kernels.LOWEST_SET_BIT else m * w
+    return _kernel_row(kernel, worst, {"shape": list(main_shape), **_timed(
+        lambda: fn(x), lambda: plain(x), 4 * words + 4 * m, 2 * words)})
 
 
 def _pack_cases(gen):
@@ -243,49 +237,289 @@ def check_pack(gen) -> dict:
         if not torch.equal(got, want):
             raise AssertionError(f"{kernel.name} disagrees at {shape}")
         m, w = shape
-        bytes_moved = m * w + 4 * m * ((w + 31) // 32)
-        bound_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-        bound_ops = m * w / INT_OPS_PER_S * 1e3
-        kernel_ms = graph_ms(lambda: fn(x))
-        timed.append({
-            "shape": list(shape),
-            "ms": kernel_ms,
-            "plain_ms": graph_ms(lambda: plain(x), reps=plain_reps),
-            "bound_ms": max(bound_bytes, bound_ops),
-            "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
-            "bytes": bytes_moved,
-            "gb_per_s": bytes_moved / (kernel_ms * 1e-3) / 1e9,
-        })
+        timed.append({"shape": list(shape), **_timed(
+            lambda: fn(x), lambda: plain(x), m * w + 4 * m * ((w + 31) // 32), m * w,
+            plain_reps=plain_reps)})
     path, large = timed
-    return {
-        "name": kernel.name,
-        "route": "cuda",
-        "source": f"wittgenstein_tpu_torch/ops/csrc/{kernel.source.name}",
-        "replaces": kernel.replaces,
-        "max_abs_err": worst,
-        **path,
-        "library_ms": None,  # torch has no bit-packing call
-        "large": large,
-    }
+    return _kernel_row(kernel, worst, {**path, "large": large})
 
 
 def run_kernels() -> dict:
     gen = torch.Generator().manual_seed(0)
     rows = {}
     for kernel, fn, plain, shape in (
-        # the flagship's largest popcount operand: R*4096 nodes x K=8
-        # candidate slots of the top level's 64 words
+        # R*4096 nodes x K=8 candidate slots of the top level's 64 words:
+        # the flagship's largest popcount operand before cand_score took
+        # it, kept as the bandwidth shape the earlier rows were timed at
         (kernels.POPCOUNT, kernels.popcount_words, bitops.popcount_words_plain,
          (FLAGSHIP_REPLICAS * 4096 * 8, 64)),
-        # hidden-/suicide-Byzantine eligibility rows at the top level
+        # the event-driven paths' wheel occupancy: 512 rows packed into
+        # 16 words per replica
         (kernels.LOWEST_SET_BIT, kernels.lowest_set_bit, bitops.lowest_set_bit_plain,
-         (BYZ_REPLICAS * 4096, 64)),
+         (PP_REPLICAS, 512 // 32)),
     ):
         rows[kernel.name] = check_kernel(kernel, fn, plain, shape, gen)
         emit({"phase": "kernel_check", **rows[kernel.name]})
     rows["pack_bool_words"] = check_pack(gen)
     emit({"phase": "kernel_check", **rows["pack_bool_words"]})
+    cgen = torch.Generator(device="cuda").manual_seed(1)
+    errs = check_fused(cgen)
+    buckets = {"popcount_words": popcount_bucket_times(cgen), **fused_bucket_times(cgen)}
+    for name, timed in buckets.items():
+        emit({"phase": "bucket_times", "kernel": name, "rows": timed})
+    for kernel in (kernels.POPCOUNT_BINOP, kernels.CAND_SCORE):
+        # the summary row: the form's largest bucket shape
+        top = max(buckets[kernel.name], key=lambda t: t["bytes"])
+        rows[kernel.name] = _kernel_row(kernel, errs[kernel.name], top)
+        emit({"phase": "kernel_check", **rows[kernel.name]})
+    # timed on the Byzantine run's own rows once that run has made them
+    rows["lowest_set_bit_andnot"] = _kernel_row(
+        kernels.LOWEST_SET_BIT_ANDNOT, errs["lowest_set_bit_andnot"], {})
     return rows
+
+
+def _kernel_row(kernel, err: int, timing: dict) -> dict:
+    return {"name": kernel.name, "route": "cuda",
+            "source": f"wittgenstein_tpu_torch/ops/csrc/{kernel.source.name}",
+            "replaces": kernel.replaces, "max_abs_err": err, **timing}
+
+
+def _bound(bytes_moved: int, ops: int) -> dict:
+    bound_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    bound_ops = ops / INT_OPS_PER_S * 1e3
+    return {"bound_ms": max(bound_bytes, bound_ops),
+            "bound_by": "bytes" if bound_bytes >= bound_ops else "operations"}
+
+
+def _timed(fn, plain, bytes_moved: int, ops: int, plain_reps: int = 20) -> dict:
+    """One timing row: kernel and plain version by CUDA-graph replay, and
+    the bound from the bytes and operations the function needs."""
+    kernel_ms = graph_ms(fn)
+    return {"ms": kernel_ms, "plain_ms": graph_ms(plain, reps=plain_reps),
+            **_bound(bytes_moved, ops), "library_ms": None, "bytes": bytes_moved,
+            "gb_per_s": bytes_moved / (kernel_ms * 1e-3) / 1e9}
+
+
+def _same(tag: str, got, want) -> None:
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w):
+            raise AssertionError(f"{tag}: kernel and plain version differ")
+
+
+def flagship_buckets() -> list:
+    """(levels per bucket, words per row) of each width bucket of the
+    4096-node flagship: w = 1 (levels 1-6), 2, 4, ..., 64."""
+    return [(b.nl, b.w_pad) for b in BatchedHandel(flagship_params(FLAGSHIP_NODES)).buckets]
+
+
+def _rand_words(shape, gen) -> torch.Tensor:
+    return torch.randint(-(2**31), 2**31, shape, generator=gen, dtype=torch.int64,
+                         device=gen.device).to(torch.int32)
+
+
+def popcount_bucket_times(gen) -> list:
+    """popcount_words at every bucket shape the flagship gives it: node
+    rows [R, N, nl, w], the due pair [R, N, nl, 2, w] and one level's K
+    candidate slots [R, N, K, w]."""
+    r, n, k = FLAGSHIP_REPLICAS, FLAGSHIP_NODES, BatchedHandel.CAND_SLOTS
+    rows = []
+    for nl, w in flagship_buckets():
+        for site, shape in (("node_rows", (r, n, nl, w)), ("due_pair", (r, n, nl, 2, w)),
+                            ("cand_slots", (r, n, k, w))):
+            x = _rand_words(shape, gen)
+            _same(f"popcount_words {shape}", kernels.popcount_words(x),
+                  bitops.popcount_words_plain(x))
+            m = x.numel() // w
+            rows.append({"site": site, "shape": list(shape),
+                         **_timed(lambda: kernels.popcount_words(x),
+                                  lambda: bitops.popcount_words_plain(x),
+                                  4 * m * w + 4 * m, 2 * m * w, plain_reps=5)})
+    return rows
+
+
+def _words_to_first(e: torch.Tensor) -> int:
+    """Words a row is read up to: its first nonzero word, or all of it."""
+    w = e.shape[-1]
+    first = torch.argmax((e != 0).to(torch.uint8), dim=-1)
+    return int(torch.where((e == 0).all(-1), w, first + 1).sum())
+
+
+def lowest_real_rows(net, states) -> list:
+    """The Byzantine run's eligibility rows byz & ~bl, per width bucket,
+    from its last tick."""
+    proto = net.protocol
+    byz, bl = states.proto["byz"], states.proto["bl"]
+    return [(proto._blocks(byz, b), proto._blocks(bl, b)) for b in proto.buckets]
+
+
+def lowest_bucket_times(rows) -> list:
+    """lowest_set_bit on the Byzantine run's real eligibility rows."""
+    out = []
+    for byz_b, bl_b in rows:
+        e = byz_b & ~bl_b
+        _same(f"lowest_set_bit {tuple(e.shape)}", kernels.lowest_set_bit(e),
+              bitops.lowest_set_bit_plain(e))
+        m, words = e.numel() // e.shape[-1], _words_to_first(e)
+        out.append({"shape": list(e.shape), "nonzero_rows": int((e != 0).any(-1).sum()),
+                    **_timed(lambda: kernels.lowest_set_bit(e),
+                             lambda: bitops.lowest_set_bit_plain(e),
+                             4 * words + 4 * m, 2 * words)})
+    return out
+
+
+def hand_kernel_names() -> set:
+    """The __global__ functions of the hand-written sources."""
+    names = set()
+    for src in kernels.CSRC.glob("*.cu"):
+        names.update(re.findall(r"__global__\s+void\s+(\w+)", src.read_text()))
+    return names
+
+
+def device_ms_by_kernel(kern, per: float) -> dict:
+    """Device ms and calls per tick (or iteration) of each hand-written
+    kernel, by its function name, from profiler device events."""
+    ours = hand_kernel_names()
+    out = {}
+    for e in kern:
+        m = re.match(r"(?:void\s+)?(\w+)", e.name)
+        if m and m.group(1) in ours:
+            row = out.setdefault(m.group(1), {"calls": 0, "device_ms": 0.0})
+            row["calls"] += 1 / per
+            row["device_ms"] += e.device_time / 1e3 / per
+    return out
+
+
+CHECK_WIDTHS = (1, 2, 3, 4, 5, 31, 32, 33, 64, 100)
+
+
+def _sparse(shape, gen, density: float = 0.05) -> torch.Tensor:
+    """Random words, each kept with probability `density`, else zero."""
+    keep = torch.rand(shape, generator=gen, device=gen.device) < density
+    return torch.where(keep, _rand_words(shape, gen), 0)
+
+
+def _fills(shape, gen):
+    """Random, sparse, all-zero, all-ones and sign-bit words of one shape."""
+    yield _rand_words(shape, gen)
+    yield _sparse(shape, gen)
+    for v in (0, -1, -(2**31)):
+        yield torch.full(shape, v, dtype=torch.int32, device=gen.device)
+
+
+def _pair_layouts(w: int, gen):
+    """(a, b) operand pairs of width w: equal shapes, either side broadcast,
+    and sliced non-contiguous rows like _commit's sig_b
+    (ver_sig[..., None, :w], stride 0 over the levels), with row strides
+    that do and do not allow 16-byte loads."""
+    b_full = _rand_words((3, 5, 7, w), gen)
+    for a in _fills((3, 5, 7, w), gen):
+        yield a, b_full
+        yield b_full, a
+    for a in _fills((3, 1, 7, w), gen):
+        yield a, b_full
+        yield b_full, a
+    for pad in (3, 4):
+        sliced = _rand_words((3, 5, w + pad), gen)[..., None, :w]
+        yield sliced, b_full
+        yield b_full, sliced
+        yield sliced, b_full[..., :1, :]
+
+
+def _max_err(tag: str, got, want) -> int:
+    """Every output equal in dtype and shape; the largest |difference|,
+    which must be 0."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    worst = 0
+    for g, w in zip(got, want):
+        if g is None and w is None:
+            continue
+        if g is None or w is None or g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"{tag}: kernel and plain version differ in form")
+        if g.numel():
+            worst = max(worst, int((g.to(torch.int64) - w.to(torch.int64)).abs().max()))
+    if worst:
+        raise AssertionError(f"{tag}: kernel and plain version differ: max |err| {worst}")
+    return worst
+
+
+def check_fused(gen) -> dict:
+    """Each fused form against its plain version over odd widths, the
+    three ops, broadcast on either side, sliced rows, K in {1, 2, 8} and
+    the special fills; returns each form's max |err|."""
+    worst = {"popcount_binop": 0, "cand_score": 0, "lowest_set_bit_andnot": 0}
+    for w in CHECK_WIDTHS:
+        for a, b in _pair_layouts(w, gen):
+            for op in kernels.OPS:
+                worst["popcount_binop"] = max(worst["popcount_binop"], _max_err(
+                    f"popcount_binop {op} {tuple(a.shape)}x{tuple(b.shape)}",
+                    kernels.popcount_binop(a, b, op), bitops.popcount_binop_plain(a, b, op)))
+            worst["lowest_set_bit_andnot"] = max(worst["lowest_set_bit_andnot"], _max_err(
+                f"lowest_set_bit_andnot {tuple(a.shape)}x{tuple(b.shape)}",
+                kernels.lowest_set_bit_andnot(a, b), bitops.lowest_set_bit_andnot_plain(a, b)))
+        for k in (1, 2, 8):
+            inc, ind, agg = (_sparse((3, 5, w), gen, 0.3) for _ in range(3))
+            for sig in _fills((3, 5, k, w), gen):
+                # an empty inc takes the |sig | inc | ind| branch; inc[:1]
+                # broadcasts over the first axis
+                for node_inc in (inc, torch.zeros_like(inc), inc[:1]):
+                    for node_agg in (agg, None):
+                        worst["cand_score"] = max(worst["cand_score"], _max_err(
+                            f"cand_score {tuple(sig.shape)}",
+                            kernels.cand_score(sig, node_inc, ind, node_agg),
+                            bitops.cand_score_plain(sig, node_inc, ind, node_agg)))
+    torch.cuda.synchronize()
+    return worst
+
+
+def fused_bucket_times(gen) -> dict:
+    """popcount_binop and cand_score at every bucket shape of the flagship:
+    _commit's sig_b | new_ind_b (sig_b a slice of ver_sig [R, N, 64],
+    stride 0 over the bucket's levels), the cache fix's K slots of one
+    level [R, N, K, w] and the merge's due pair [R, N, nl, 2, w]."""
+    r, n, k = FLAGSHIP_REPLICAS, FLAGSHIP_NODES, BatchedHandel.CAND_SLOTS
+    ver = _rand_words((r, n, 64), gen)
+    binop, cand = [], []
+    for nl, w in flagship_buckets():
+        a = ver[:, :, None, :w]
+        b = _rand_words((r, n, nl, w), gen)
+        _same(f"popcount_binop {w}", kernels.popcount_binop(a, b, "or"),
+              bitops.popcount_binop_plain(a, b, "or"))
+        rows = r * n * nl
+        binop.append({"site": "commit", "shape": [r, n, nl, w], **_timed(
+            lambda: kernels.popcount_binop(a, b, "or"),
+            lambda: bitops.popcount_binop_plain(a, b, "or"),
+            4 * (r * n * w + rows * w) + 4 * rows, 3 * rows * w, plain_reps=5)})
+        for site, lead, slots in (("cache_fix", (r, n), k), ("due_pair", (r, n, nl), 2)):
+            sig = _rand_words(lead + (slots, w), gen)
+            inc, ind, agg = (_sparse(lead + (w,), gen, 0.3) for _ in range(3))
+            _same(f"cand_score {site} {w}", kernels.cand_score(sig, inc, ind, agg),
+                  bitops.cand_score_plain(sig, inc, ind, agg))
+            nodes = int(np.prod(lead))
+            words = nodes * slots * w
+            cand.append({"site": site, "shape": list(lead) + [slots, w], **_timed(
+                lambda: kernels.cand_score(sig, inc, ind, agg),
+                lambda: bitops.cand_score_plain(sig, inc, ind, agg),
+                4 * (words + 3 * nodes * w) + 16 * nodes * slots, 11 * words, plain_reps=5)})
+    return {"popcount_binop": binop, "cand_score": cand}
+
+
+def andnot_bucket_times(rows) -> list:
+    """lowest_set_bit_andnot on the Byzantine run's real (byz, bl) rows."""
+    out = []
+    for byz_b, bl_b in rows:
+        _same(f"lowest_set_bit_andnot {tuple(byz_b.shape)}",
+              kernels.lowest_set_bit_andnot(byz_b, bl_b),
+              bitops.lowest_set_bit_andnot_plain(byz_b, bl_b))
+        m, words = byz_b.numel() // byz_b.shape[-1], _words_to_first(byz_b & ~bl_b)
+        out.append({"shape": list(byz_b.shape), **_timed(
+            lambda: kernels.lowest_set_bit_andnot(byz_b, bl_b),
+            lambda: bitops.lowest_set_bit_andnot_plain(byz_b, bl_b),
+            8 * words + 5 * m, 3 * words)})
+    return out
 
 
 def _leaf_diff(a: dict, b: dict) -> list:
@@ -390,15 +624,19 @@ def drive(params, replicas: int) -> dict:
         "displaced": states.proto["displaced"].cpu().tolist(),
         **_quantiles(done, down),
         "_all_live_done": bool((live_done > 0).all()),
+        "_net": net,
+        "_states": states,
     }
 
 
 def flagship() -> dict:
     out = drive(flagship_params(4096), FLAGSHIP_REPLICAS)
+    del out["_net"], out["_states"]
     if not out["_all_live_done"]:
         raise AssertionError(f"flagship: not every live node finished: {out}")
-    if out["launches"]["popcount_words"] <= 0:
-        raise AssertionError("flagship: popcount_words kernel never launched")
+    for name in ("popcount_words", "popcount_binop", "cand_score"):
+        if out["launches"][name] <= 0:
+            raise AssertionError(f"flagship: {name} kernel never launched")
     emit({"phase": "flagship", **{k: v for k, v in out.items() if not k.startswith("_")}})
     return out
 
@@ -427,6 +665,7 @@ def profile_window(flag: dict, warm_ticks: int = 100, ticks: int = 10) -> None:
         "device_ms_per_tick": device_ms,
         # against the unprofiled flagship's wall time per tick
         "device_busy_share": device_ms / flag["ms_per_tick"],
+        "hand_kernels_per_tick": device_ms_by_kernel(kern, ticks),
         "top_ops": [
             {"op": e.key, "calls_per_tick": e.count / ticks,
              "device_ms_per_tick": e.self_device_time_total / 1e3 / ticks}
@@ -441,8 +680,8 @@ def byzantine() -> dict:
         byzantine_suicide=True,
     )
     out = drive(params, BYZ_REPLICAS)
-    if out["launches"]["lowest_set_bit"] <= 0:
-        raise AssertionError("byzantine: lowest_set_bit kernel never launched")
+    if out["launches"]["lowest_set_bit_andnot"] <= 0:
+        raise AssertionError("byzantine: lowest_set_bit_andnot kernel never launched")
     emit({"phase": "byzantine", "nodes_down": 1024,
           **{k: v for k, v in out.items() if not k.startswith("_")}})
     return out
@@ -532,6 +771,7 @@ def pp_profile(pp: dict, warm_ms: int = 200, window_ms: int = 20) -> None:
         "device_ms_per_iteration": device_ms / it,
         # against the unprofiled run's wall time per iteration
         "device_busy_share": device_ms / it / pp["ms_per_iteration"],
+        "hand_kernels_per_iteration": device_ms_by_kernel(kern, it),
         "top_ops": [
             {"op": e.key, "calls_per_iteration": e.count / it,
              "device_ms_per_iteration": e.self_device_time_total / 1e3 / it}
@@ -573,16 +813,23 @@ def main() -> int:
     flag = flagship()
     profile_window(flag)
     byz = byzantine()
+    real = lowest_real_rows(byz.pop("_net"), byz.pop("_states"))
+    lowest_rows, andnot_rows = lowest_bucket_times(real), andnot_bucket_times(real)
+    emit({"phase": "byz_rows", "lowest_set_bit": lowest_rows,
+          "lowest_set_bit_andnot": andnot_rows})
+    rows["lowest_set_bit_andnot"].update(andnot_rows[-1])  # the top bucket's rows
     pp = pingpong()
     pp_profile(pp)
     dfinity()
-    # launches: each kernel's count from the run of its path — popcount
-    # from the flagship, lowest_set_bit from the Byzantine run (the
-    # flagship runs no attack, so it never reaches that kernel),
-    # pack_bool_words from the PingPong run
-    rows["popcount_words"]["launches"] = flag["launches"]["popcount_words"]
-    rows["lowest_set_bit"]["launches"] = byz["launches"]["lowest_set_bit"]
-    rows["pack_bool_words"]["launches"] = pp["launches"]["pack_bool_words"]
+    # launches: each kernel's count from the run of its path — the
+    # popcount family from the flagship, lowest_set_bit_andnot from the
+    # Byzantine run (the flagship runs no attack, so it never reaches it),
+    # lowest_set_bit and pack_bool_words from the PingPong run
+    for name in ("popcount_words", "popcount_binop", "cand_score"):
+        rows[name]["launches"] = flag["launches"][name]
+    rows["lowest_set_bit_andnot"]["launches"] = byz["launches"]["lowest_set_bit_andnot"]
+    for name in ("lowest_set_bit", "pack_bool_words"):
+        rows[name]["launches"] = pp["launches"][name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: r[k] for k in keys} for r in rows.values()]})

@@ -8,10 +8,14 @@ space is the bit permutation j -> j ^ (r ^ s) (`xor_shuffle`).
 
 Words are uint32 in the JAX package.  Torch has no usable uint32
 arithmetic, so the port carries every word as an int32 tensor with the
-same bits.  `popcount_words`, `lowest_set_bit` and `pack_bool_words`
-dispatch on the tensor's device: a CUDA tensor launches the hand-written kernel
-(ops/kernels.py, sources in ops/csrc), a CPU tensor runs the plain
-PyTorch version below.  There is no other route and no fallback.
+same bits.  `popcount_words`, `lowest_set_bit` and `pack_bool_words`,
+and the fused-operand forms `popcount_binop`, `cand_score` and
+`lowest_set_bit_andnot`, dispatch on the tensor's device: a CUDA tensor
+launches the hand-written kernel (ops/kernels.py, sources in ops/csrc), a
+CPU tensor runs the plain PyTorch version below.  There is no other route
+and no fallback.  Each fused form's plain version is the composition of
+elementwise ops and the one-operand plain versions that its kernel
+replaces.
 """
 
 from __future__ import annotations
@@ -57,6 +61,47 @@ def lowest_set_bit_plain(words: torch.Tensor) -> torch.Tensor:
     return (widx.to(torch.int32) * WORD + popcount_words_plain(low.to(torch.int32)))
 
 
+def _combine(a: torch.Tensor, b: torch.Tensor, op: str) -> torch.Tensor:
+    if op == "and":
+        return a & b
+    if op == "or":
+        return a | b
+    if op == "andnot":
+        return a & ~b
+    raise ValueError(f"op {op!r} not in ('and', 'or', 'andnot')")
+
+
+def popcount_binop_plain(a: torch.Tensor, b: torch.Tensor, op: str) -> torch.Tensor:
+    """Plain version of the binop kernel: popcount_words_plain(a op b)."""
+    return popcount_words_plain(_combine(a, b, op))
+
+
+def cand_score_plain(sig, inc, ind, agg=None):
+    """Plain version of the candidate-score kernel, as Handel's score sites
+    compose it.  sig [..., K, w] candidate rows; inc, ind, agg [..., w]
+    node rows broadcast over K.  Returns [..., K] int32:
+    s = sizeIfIncluded = |(sig ∩ inc ≠ ∅ ? sig : sig ∪ inc) ∪ ind|,
+    card = |sig|, wind = |sig ∪ ind|, aggi = [sig ∩ agg ≠ ∅] as 0/1
+    (None without agg)."""
+    inc, ind = inc[..., None, :], ind[..., None, :]
+    inter = popcount_words_plain(sig & inc) > 0
+    cc = torch.where(inter[..., None], sig, sig | inc)
+    s = popcount_words_plain(cc | ind)
+    card = popcount_words_plain(sig)
+    wind = popcount_words_plain(sig | ind)
+    aggi = None
+    if agg is not None:
+        aggi = (popcount_words_plain(sig & agg[..., None, :]) > 0).to(torch.int32)
+    return s, card, wind, aggi
+
+
+def lowest_set_bit_andnot_plain(a: torch.Tensor, b: torch.Tensor):
+    """Plain version of the andnot kernel: (has, lowest) of e = a & ~b,
+    has = popcount_words_plain(e) > 0, lowest = lowest_set_bit_plain(e)."""
+    e = a & ~b
+    return popcount_words_plain(e) > 0, lowest_set_bit_plain(e)
+
+
 def pack_bool_words_plain(bits: torch.Tensor) -> torch.Tensor:
     """Plain version of the pack kernel: [..., W] bool -> [..., ceil(W/32)]
     int32 words, bit j of word k = element 32k + j, padding bits 0.  The
@@ -89,25 +134,59 @@ def pack_bool_words(bits: torch.Tensor) -> torch.Tensor:
     return pack_bool_words_plain(bits)
 
 
+def _route(name: str, *xs) -> bool:
+    """True for CUDA operands (launch the kernel), False for CPU ones (run
+    the plain version); any other device raises."""
+    for x in xs:
+        if x is not None:
+            _check_words(x)
+    if any(x is not None and x.is_cuda for x in xs):
+        return True
+    for x in xs:
+        if x is not None and x.device.type != "cpu":
+            raise RuntimeError(f"no {name} for device {x.device}")
+    return False
+
+
 def popcount_words(words: torch.Tensor) -> torch.Tensor:
     """Total set bits over the last axis of packed int32 words."""
-    _check_words(words)
-    if words.is_cuda:
+    if _route("popcount_words", words):
         return kernels.popcount_words(words)
-    if words.device.type != "cpu":
-        raise RuntimeError(f"no popcount_words for device {words.device}")
     return popcount_words_plain(words)
 
 
 def lowest_set_bit(words: torch.Tensor) -> torch.Tensor:
     """Index of the lowest set bit over the last axis of packed [..., w]
     int32 words (32 for an all-zero row — gate on popcount > 0)."""
-    _check_words(words)
-    if words.is_cuda:
+    if _route("lowest_set_bit", words):
         return kernels.lowest_set_bit(words)
-    if words.device.type != "cpu":
-        raise RuntimeError(f"no lowest_set_bit for device {words.device}")
     return lowest_set_bit_plain(words)
+
+
+def popcount_binop(a: torch.Tensor, b: torch.Tensor, op: str) -> torch.Tensor:
+    """popcount_words(a op b) for op in "and", "or", "andnot" (a & ~b),
+    with a and b broadcast over their leading axes; on the card a op b is
+    never formed."""
+    if _route("popcount_binop", a, b):
+        return kernels.popcount_binop(a, b, op)
+    return popcount_binop_plain(a, b, op)
+
+
+def cand_score(sig, inc, ind, agg=None):
+    """Handel's candidate score (s, card, wind, aggi) of each candidate row
+    of sig [..., K, w] against its node rows inc, ind, agg [..., w]; see
+    cand_score_plain.  One pass over sig on the card."""
+    if _route("cand_score", sig, inc, ind, agg):
+        return kernels.cand_score(sig, inc, ind, agg)
+    return cand_score_plain(sig, inc, ind, agg)
+
+
+def lowest_set_bit_andnot(a: torch.Tensor, b: torch.Tensor):
+    """(has, lowest) of each row of a & ~b: has [...] bool (any bit set),
+    lowest [...] int32 (32 for an empty row)."""
+    if _route("lowest_set_bit_andnot", a, b):
+        return kernels.lowest_set_bit_andnot(a, b)
+    return lowest_set_bit_andnot_plain(a, b)
 
 
 def xor_shuffle(words: torch.Tensor, v) -> torch.Tensor:

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from ..engine.protocol import BatchedProtocol
-from ..ops.bitops import lowest_set_bit, xor_shuffle
+from ..ops.bitops import xor_shuffle
 from ..ops.indexing import add_at, set_rows
 
 INT32_MAX = 2**31 - 1
@@ -203,12 +203,6 @@ class BitsetAggBase(BatchedProtocol):
         oh = torch.ones_like(bit) << bit  # bit 31 lands on the sign bit
         ar = torch.arange(w, dtype=torch.int32, device=r0.device)
         return torch.where(ar == word[..., None], oh[..., None], 0)
-
-    @staticmethod
-    def _lowest_bit(words):
-        """Index of the lowest set bit over the last axis (32 when empty —
-        gate on popcount > 0)."""
-        return lowest_set_bit(words)
 
     def _getbit(self, x, pos):
         """Bit `pos` of full-width [R, N, W] vectors; pos is [R, N, ...]."""

@@ -13,8 +13,11 @@ approximations).  What changes here is representation only:
     (the rank permutation, the selection hash) runs in int64 masked to
     32 bits;
   * the clock `t` is the engine's host int;
-  * `popcount_words` / `lowest_set_bit` launch the hand-written CUDA
-    kernels on a CUDA state and run their plain versions on a CPU state.
+  * `popcount_words` and its fused-operand forms (`popcount_binop`,
+    `cand_score`, `lowest_set_bit_andnot`) launch the hand-written CUDA
+    kernels on a CUDA state and run their plain versions on a CPU state;
+    a fused form replaces the JAX package's composed elementwise ops at a
+    site with one kernel that reads each operand once.
 
 Every phase is bit-identical to the JAX package (tests/test_torch_handel.py).
 """
@@ -31,7 +34,13 @@ from ..core.registries import registry_network_latencies, registry_node_builders
 from ..engine.core import BatchedNetwork, resolve_device
 from ..engine.density import NarrowLeaf, narrowest_int
 from ..engine.rng import hash32, hash32_u
-from ..ops.bitops import popcount_words, xor_shuffle
+from ..ops.bitops import (
+    cand_score,
+    lowest_set_bit_andnot,
+    popcount_binop,
+    popcount_words,
+    xor_shuffle,
+)
 from ..utils.javarand import JavaRandom
 from ._agg_batched import INT32_MAX, BitsetAggBase, _u32_i32
 from .handel import HandelParameters, choose_bad_nodes
@@ -199,16 +208,14 @@ class BatchedHandel(BitsetAggBase):
         lead = inc.shape[:-1]
         s_p, card_p, wind_p, aggi_p = [], [], [], []
         for i, b in enumerate(self.buckets):
-            c_sig = self._sig_view(proto, i, K, prefix="cand_sig")
-            inc_b = self._blocks(inc, b)[..., None, :]
-            ind_b = self._blocks(ind, b)[..., None, :]
-            agg_b = self._blocks(agg, b)[..., None, :]
-            inter = popcount_words(c_sig & inc_b) > 0
-            cc = torch.where(inter[..., None], c_sig, c_sig | inc_b)
-            s_p.append(popcount_words(cc | ind_b))
-            card_p.append(popcount_words(c_sig))
-            wind_p.append(popcount_words(c_sig | ind_b))
-            aggi_p.append((popcount_words(c_sig & agg_b) > 0).to(torch.int32))
+            s, card, wind, aggi = cand_score(
+                self._sig_view(proto, i, K, prefix="cand_sig"),
+                self._blocks(inc, b), self._blocks(ind, b), self._blocks(agg, b),
+            )
+            s_p.append(s)
+            card_p.append(card)
+            wind_p.append(wind)
+            aggi_p.append(aggi)
 
         def flat(ps):
             return torch.cat(ps, dim=-2).reshape(lead + ((L - 1) * K,))
@@ -267,8 +274,8 @@ class BatchedHandel(BitsetAggBase):
             new_ind_b = ind_b | sender
             # the improved guard: extend/replace lastAgg ONLY when the
             # candidate plus individuals is strictly larger (:716-722)
-            improved2 = popcount_words(sig_b | new_ind_b) > popcount_words(new_ind_b)
-            inter = popcount_words(agg_b & sig_b) > 0
+            improved2 = popcount_binop(sig_b, new_ind_b, "or") > popcount_words(new_ind_b)
+            inter = popcount_binop(agg_b, sig_b, "and") > 0
             new_agg_b = torch.where(
                 (improved2 & inter)[..., None],
                 sig_b.expand(agg_b.shape),
@@ -277,7 +284,7 @@ class BatchedHandel(BitsetAggBase):
             new_inc_b = torch.where(
                 improved2[..., None], new_agg_b | new_ind_b, inc_b | sender
             )
-            improved1 = popcount_words(inc_b & sender) == 0
+            improved1 = popcount_binop(inc_b, sender, "and") == 0
             improved = m & (improved1 | improved2)
 
             before_full = popcount_words(inc_b) == bs
@@ -317,11 +324,7 @@ class BatchedHandel(BitsetAggBase):
                 inc_lv = torch.gather(self._blocks(inc, b), 2, lw)[:, :, 0]
                 ind_lv = torch.gather(self._blocks(ind, b), 2, lw)[:, :, 0]
                 agg_lv = torch.gather(self._blocks(agg, b), 2, lw)[:, :, 0]
-                inter = popcount_words(sig_lv & inc_lv[:, :, None, :]) > 0
-                cc = torch.where(inter[..., None], sig_lv, sig_lv | inc_lv[:, :, None, :])
-                s_lv = popcount_words(cc | ind_lv[:, :, None, :])
-                wind_lv = popcount_words(sig_lv | ind_lv[:, :, None, :])
-                aggi_lv = (popcount_words(sig_lv & agg_lv[:, :, None, :]) > 0).to(torch.int32)
+                s_lv, _, wind_lv, aggi_lv = cand_score(sig_lv, inc_lv, ind_lv, agg_lv)
                 lm = mlev[..., None] & (lv_rows == (lvl - 1)[..., None])
                 cs3 = torch.where(lm[..., None], s_lv[:, :, None, :], cs3)
                 cw3 = torch.where(lm[..., None], wind_lv[:, :, None, :], cw3)
@@ -442,7 +445,6 @@ class BatchedHandel(BitsetAggBase):
         rank_pieces, rel_pieces = [], []
         s_pieces, card_pieces, wind_pieces, aggi_pieces = [], [], [], []
         cand_sig_updates = {}
-        cand_s3 = proto["cand_s"].reshape(r, n, L - 1, K) if self.SCORE_CACHE else None
         for i, b in enumerate(self.buckets):
             sl = slice(b.lo - 1, b.hi)  # level rows of this bucket
             sig_new = self._due_pair_sig(proto, i, t)  # [R, N, nl, 2, w_pad]
@@ -464,37 +466,14 @@ class BatchedHandel(BitsetAggBase):
             if self.SCORE_CACHE:
                 # only the two due slots pay popcounts; the K resident
                 # slots' quantities ride in the caches
-                agg_b = self._blocks(agg, b)
-                inter2 = popcount_words(sig_new & inc_b[..., None, :]) > 0
-                c2 = torch.where(inter2[..., None], sig_new, sig_new | inc_b[..., None, :])
-                s_new = popcount_words(c2 | ind_b[..., None, :])
-                all_s = torch.cat([cand_s3[:, :, sl, :], s_new], dim=-1)
-                all_card = torch.cat(
-                    [
-                        proto["cand_card"].reshape(r, n, L - 1, K)[:, :, sl, :],
-                        popcount_words(sig_new),
-                    ],
-                    dim=-1,
-                )
-                all_wind = torch.cat(
-                    [
-                        proto["cand_wind"].reshape(r, n, L - 1, K)[:, :, sl, :],
-                        popcount_words(sig_new | ind_b[..., None, :]),
-                    ],
-                    dim=-1,
-                )
-                all_aggi = torch.cat(
-                    [
-                        proto["cand_aggi"].reshape(r, n, L - 1, K)[:, :, sl, :],
-                        (popcount_words(sig_new & agg_b[..., None, :]) > 0).to(torch.int32),
-                    ],
-                    dim=-1,
+                new = cand_score(sig_new, inc_b, ind_b, self._blocks(agg, b))
+                all_s, all_card, all_wind, all_aggi = (
+                    torch.cat([proto[leaf].reshape(r, n, L - 1, K)[:, :, sl, :], x], dim=-1)
+                    for leaf, x in zip(self.CACHE_LEAF_NAMES, new)
                 )
                 s = all_s
             else:
-                inter = popcount_words(all_sig & inc_b[..., None, :]) > 0
-                c = torch.where(inter[..., None], all_sig, all_sig | inc_b[..., None, :])
-                s = popcount_words(c | ind_b[..., None, :])  # sizeIfIncluded
+                s = cand_score(all_sig, inc_b, ind_b)[0]  # sizeIfIncluded
             cur = popcount_words(inc_b)
             keep = valid & (s > cur[..., None])
             if self.track_bad:
@@ -653,9 +632,7 @@ class BatchedHandel(BitsetAggBase):
                 s = v["cand_s"].reshape(r, n, L - 1, K)[:, :, sl, :]
                 ccard_pieces.append(proto["cand_card"].reshape(r, n, L - 1, K)[:, :, sl, :])
             else:
-                inter = popcount_words(c_sig & inc_b[..., None, :]) > 0
-                cc = torch.where(inter[..., None], c_sig, c_sig | inc_b[..., None, :])
-                s = popcount_words(cc | ind_b[..., None, :])
+                s, sig_card, with_ind, aggi = cand_score(c_sig, inc_b, ind_b, agg_b)
                 cur_sig = self._sig_view(proto, i, K, prefix="cand_sig")
                 ccard_pieces.append(popcount_words(cur_sig))
             curated = valid & (s > popcount_words(inc_b)[..., None])
@@ -679,9 +656,7 @@ class BatchedHandel(BitsetAggBase):
                 agg_inter = v["cand_aggi"].reshape(r, n, L - 1, K)[:, :, sl, :] > 0
                 with_ind = v["cand_wind"].reshape(r, n, L - 1, K)[:, :, sl, :]
             else:
-                sig_card = popcount_words(c_sig)
-                agg_inter = popcount_words(c_sig & agg_b[..., None, :]) > 0
-                with_ind = popcount_words(c_sig | ind_b[..., None, :])
+                agg_inter = aggi > 0
             vcard_pieces.append(sig_card)
             score = torch.where(
                 agg_card[..., None] >= bs[:, None],
@@ -715,11 +690,10 @@ class BatchedHandel(BitsetAggBase):
                 # createSuicideByzantineSig (:538-559): a forged full-block
                 # sig from an eligible Byzantine peer short-circuits the
                 # level's choice
-                eligible = self._blocks(byz, b) & ~self._blocks(bl, b)
+                # eligible = byz & ~bl; its lowest block-local index (stand-in
+                # for cursor order)
+                has_byz, m_byz = lowest_set_bit_andnot(self._blocks(byz, b), self._blocks(bl, b))
                 any_valid = torch.any(valid, dim=-1)
-                has_byz = popcount_words(eligible) > 0
-                # lowest block-local index (stand-in for cursor order)
-                m_byz = self._lowest_bit(eligible)
                 rel_byz = bs + (m_byz & (bs - 1))
                 rank_byz = self._rank(state.seed.view(r, 1, 1), ids[:, None], lv, rel_byz)
                 inject = has_byz & any_valid & (rank_byz < win_hi)
@@ -776,23 +750,22 @@ class BatchedHandel(BitsetAggBase):
             inc_b = self._blocks(inc, bt)[..., -1, :]
             ind_b = self._blocks(ind, bt)[..., -1, :]
             agg_b = self._blocks(agg, bt)[..., -1, :]
-            eligible = self._blocks(byz, bt)[..., -1, :] & ~inc_b
-            has_byz = popcount_words(eligible) > 0
-            m_byz = self._lowest_bit(eligible)
+            # eligible = byz & ~inc
+            has_byz, m_byz = lowest_set_bit_andnot(self._blocks(byz, bt)[..., -1, :], inc_b)
             rel_byz = bs + (m_byz & (bs - 1))
             rank_byz = self._rank(seed2, ids, l, rel_byz)
 
             # its score: single new bit (:650-664)
             agg_card = popcount_words(agg_b)
             oh = self._onehot(m_byz & (bs - 1), bt.w_pad)
-            byz_inter = popcount_words(oh & agg_b) > 0
+            byz_inter = popcount_binop(oh, agg_b, "and") > 0
             byz_score = torch.where(
                 agg_card >= bs,
                 0,
                 torch.where(
                     ~byz_inter,
                     agg_card + 1,
-                    torch.clamp(popcount_words(oh | ind_b) - agg_card, min=0),
+                    torch.clamp(popcount_binop(oh, ind_b, "or") - agg_card, min=0),
                 ),
             )
             widx_top = self._level_stats(widx_p)[..., -1]
