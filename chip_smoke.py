@@ -13,10 +13,16 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 the main paths' shapes — the fused forms (popcount_binop,
                 cand_score, lowest_set_bit_andnot) also over the three ops,
                 broadcast on either side, sliced rows like _commit's sig_b
-                and K in {1, 2, 8}; time kernel, plain version and bound at
-                the main paths' shapes, the popcount family at every width
-                bucket of the flagship (pack_bool_words also at
-                [262144, 512], for bandwidth)
+                and K in {1, 2, 8}; both pack forms also past 16 words a
+                row (W up to 1056), pack_bool_words also on bases off a
+                4-byte boundary; pack_occupied over widths, shifts across
+                the wrap and past W, signed fills and strided rows; time
+                kernel, plain version and bound at the main paths' shapes,
+                the popcount family at
+                every width bucket of the flagship, pack_bool_words also at
+                [262144, 512] for bandwidth, pack_occupied at PingPong's
+                and Dfinity's wheels beside the composition it replaces
+                (> 0, roll, pack_bool_words)
   4. identity   the port on the CPU (plain versions) and on CUDA (kernels)
                 give identical state in every leaf: batched Handel at 64
                 nodes x 2 replicas x 300 ms, flagship-shaped and with
@@ -38,12 +44,13 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
   8. pingpong   the event-driven main path: make_pingpong(1000), R=4096,
                 run_ms_batched(700, stop_when_done) on the time wheel and
                 the consensus-jump loop; every witness must count 1000
-                pongs, nothing may drop, and pack_bool_words, lowest_set_bit
+                pongs, nothing may drop, and pack_occupied, lowest_set_bit
                 and popcount_words must have launched in this run
-  9. pp_profile a torch.profiler window of 20 ms of the PingPong run
+  9. pp_profile a torch.profiler window of 20 ms of the PingPong run, with
+                pack_occupied's device time
  10. dfinity    make_dfinity(max_heights=64), R=1024, 15000 ms: nothing may
                 drop, every replica's head height (its highest notarized
-                block) reaches 4, and pack_bool_words must have launched
+                block) reaches 4, and pack_occupied must have launched
  11. kernels    one line listing every ported kernel with its numbers
 
 The last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -197,10 +204,13 @@ def check_kernel(kernel, fn, plain, main_shape, gen) -> dict:
 
 
 def _pack_cases(gen):
-    """Bool operands over odd widths up to the wheel's 512 rows, random,
-    sparse, all-false and all-true, plus broadcast and strided views."""
+    """Bool operands over odd widths up to twice the wheel's 512 rows
+    (past 16 words a row the walk takes a second round of steps, and at 32
+    words it stores 32 at once), random, sparse, all-false and all-true,
+    plus broadcast and strided views."""
     dev = "cuda"
-    for w in (1, 2, 7, 31, 32, 33, 63, 64, 65, 100, 127, 128, 129, 255, 256, 257, 511, 512):
+    for w in (1, 2, 7, 31, 32, 33, 63, 64, 65, 100, 127, 128, 129, 255, 256, 257, 511, 512,
+              544, 1024, 1056):
         for rows in ((), (1,), (7,), (257,), (3, 5, 11)):
             shape = rows + (w,)
             yield (torch.rand(shape, generator=gen) < 0.5).to(dev)
@@ -209,6 +219,11 @@ def _pack_cases(gen):
             yield torch.ones(shape, dtype=torch.bool, device=dev)
     yield (torch.rand((1, 100), generator=gen) < 0.5).to(dev).expand(300, 100)
     yield (torch.rand((64, 40), generator=gen) < 0.5).to(dev).t()
+    # word-multiple rows on a base off a 4-byte boundary: every row takes
+    # the funnel shift
+    flat = (torch.rand(257 * 512 + 3, generator=gen) < 0.5).to(dev)
+    for start in (1, 2, 3):
+        yield flat[start : start + 257 * 512].view(257, 512)
 
 
 def check_pack(gen) -> dict:
@@ -244,6 +259,58 @@ def check_pack(gen) -> dict:
     return _kernel_row(kernel, worst, {**path, "large": large})
 
 
+def _occupancy_fill(shape, gen, density: float = 0.02) -> torch.Tensor:
+    """A wheel fill: entry counts on about `density` of the rows."""
+    counts = torch.randint(1, 5, shape, generator=gen, dtype=torch.int32)
+    return torch.where(torch.rand(shape, generator=gen) < density, counts, 0)
+
+
+def _occupied_cases(gen):
+    """(fill, shift): the CPU tests' grid of widths, shifts, fills and
+    leading shapes, on the card, and widths past 16 words a row."""
+    for w in (1, 31, 32, 33, 100, 128, 512, 544, 1024, 1056):
+        for lead in ((), (1,), (5,), (2, 3), (257,), "transposed"):
+            shape = (w, 3) if lead == "transposed" else lead + (w,)
+            signed = torch.randint(-5, 3, shape, generator=gen, dtype=torch.int32)
+            signed.view(-1)[::7] = -(2**31)
+            fills = [torch.zeros(shape, dtype=torch.int32), _occupancy_fill(shape, gen),
+                     _occupancy_fill(shape, gen, 0.7),
+                     torch.randint(1, 2**31 - 1, shape, generator=gen, dtype=torch.int32),
+                     signed]
+            for fill in fills:
+                fill = fill.cuda()
+                if lead == "transposed":
+                    fill = fill.t()
+                for shift in (0, 1, 31, 32, w - 1, w, 3 * w + 5):
+                    yield fill, shift
+
+
+def check_occupied(gen) -> dict:
+    """pack_occupied against its plain version; timed at PingPong's and
+    Dfinity's wheels ([R, 512] int32 fills) beside the composition it
+    replaces at the engine's sites, gt + roll + pack_bool_words."""
+    kernel, fn, plain = kernels.PACK_OCCUPIED, kernels.pack_occupied, bitops.pack_occupied_plain
+    worst = 0
+    for fill, shift in _occupied_cases(gen):
+        worst = max(worst, _max_err(f"pack_occupied {tuple(fill.shape)} shift {shift}",
+                                    fn(fill, shift), plain(fill, shift)))
+    timed = []
+    for replicas in (PP_REPLICAS, DF_REPLICAS):
+        fill, shift = _occupancy_fill((replicas, 512), gen).cuda(), 137
+        _same(f"pack_occupied [{replicas}, 512]", fn(fill, shift), plain(fill, shift))
+        m, w = fill.shape
+        timed.append({"shape": [m, w], **_timed(
+            lambda: fn(fill, shift), lambda: plain(fill, shift),
+            4 * m * w + 4 * m * (w // 32), m * w)})
+        if replicas == PP_REPLICAS:
+            def composed():
+                return kernels.pack_bool_words(torch.roll(fill > 0, -shift, -1))
+            _same("composition [4096, 512]", composed(), fn(fill, shift))
+            timed[-1]["composition_ms"] = graph_ms(composed)
+    pingpong, dfinity = timed
+    return _kernel_row(kernel, worst, {**pingpong, "dfinity": dfinity})
+
+
 def run_kernels() -> dict:
     gen = torch.Generator().manual_seed(0)
     rows = {}
@@ -262,6 +329,8 @@ def run_kernels() -> dict:
         emit({"phase": "kernel_check", **rows[kernel.name]})
     rows["pack_bool_words"] = check_pack(gen)
     emit({"phase": "kernel_check", **rows["pack_bool_words"]})
+    rows["pack_occupied"] = check_occupied(gen)
+    emit({"phase": "kernel_check", **rows["pack_occupied"]})
     cgen = torch.Generator(device="cuda").manual_seed(1)
     errs = check_fused(cgen)
     buckets = {"popcount_words": popcount_bucket_times(cgen), **fused_bucket_times(cgen)}
@@ -727,7 +796,7 @@ def pingpong() -> dict:
         raise AssertionError(f"pingpong: {(pong != PP_NODES).sum()} witnesses not done")
     if dropped.any():
         raise AssertionError(f"pingpong: {int(dropped.sum())} messages dropped")
-    for name in ("pack_bool_words", "lowest_set_bit", "popcount_words"):
+    for name in ("pack_occupied", "lowest_set_bit", "popcount_words"):
         if launches[name] <= 0:
             raise AssertionError(f"pingpong: {name} kernel never launched")
     # with stop_when_done a replica's last executed tick is the tick its
@@ -763,6 +832,9 @@ def pp_profile(pp: dict, warm_ms: int = 200, window_ms: int = 20) -> None:
     device_ms = sum(e.device_time for e in kern) / 1e3
     ops = [e for e in prof.key_averages() if e.key.startswith("aten::")]
     ops.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    hand = device_ms_by_kernel(kern, it)
+    if "pack_occupied_rows" not in hand:
+        raise AssertionError("pp_profile: no pack_occupied_rows kernel in the window")
     emit({
         "phase": "pp_profile",
         "window_ms": [warm_ms, warm_ms + window_ms],
@@ -771,7 +843,8 @@ def pp_profile(pp: dict, warm_ms: int = 200, window_ms: int = 20) -> None:
         "device_ms_per_iteration": device_ms / it,
         # against the unprofiled run's wall time per iteration
         "device_busy_share": device_ms / it / pp["ms_per_iteration"],
-        "hand_kernels_per_iteration": device_ms_by_kernel(kern, it),
+        "hand_kernels_per_iteration": hand,
+        "pack_occupied_device_ms_per_iteration": hand["pack_occupied_rows"]["device_ms"],
         "top_ops": [
             {"op": e.key, "calls_per_iteration": e.count / it,
              "device_ms_per_iteration": e.self_device_time_total / 1e3 / it}
@@ -794,8 +867,8 @@ def dfinity() -> dict:
     replica_heads = heads.max(-1)
     if replica_heads.min() < 4:
         raise AssertionError(f"dfinity: a replica's head height is {replica_heads.min()} < 4")
-    if launches["pack_bool_words"] <= 0:
-        raise AssertionError("dfinity: pack_bool_words kernel never launched")
+    if launches["pack_occupied"] <= 0:
+        raise AssertionError("dfinity: pack_occupied kernel never launched")
     out = {"nodes": int(heads.shape[1]), "ms": DF_MS, **_loop_numbers(net, DF_REPLICAS, wall, launches),
            "replica_head_min": int(replica_heads.min()), "node_head_min": int(heads.min()),
            "node_head_max": int(heads.max()),
@@ -824,11 +897,13 @@ def main() -> int:
     # launches: each kernel's count from the run of its path — the
     # popcount family from the flagship, lowest_set_bit_andnot from the
     # Byzantine run (the flagship runs no attack, so it never reaches it),
-    # lowest_set_bit and pack_bool_words from the PingPong run
+    # lowest_set_bit and pack_occupied from the PingPong run; the base
+    # pack_bool_words runs on no path since pack_occupied took both wheel
+    # sites, so its count from that run is 0
     for name in ("popcount_words", "popcount_binop", "cand_score"):
         rows[name]["launches"] = flag["launches"][name]
     rows["lowest_set_bit_andnot"]["launches"] = byz["launches"]["lowest_set_bit_andnot"]
-    for name in ("lowest_set_bit", "pack_bool_words"):
+    for name in ("lowest_set_bit", "pack_bool_words", "pack_occupied"):
         rows[name]["launches"] = pp["launches"][name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from ..core.latency import LatencyStatic, NetworkLatency, vec_latency
-from ..ops.bitops import lowest_set_bit, pack_bool_words, popcount_words
+from ..ops.bitops import lowest_set_bit, pack_occupied, popcount_words
 from ..ops.indexing import add_at, set_rows, take
 from .density import lane_plan
 from .rng import hash32, pseudo_delta
@@ -704,15 +704,15 @@ class BatchedNetwork:
     def _wheel_next_arrival(self, state: SimState, t: int) -> torch.Tensor:
         """Earliest tick >= t with an occupied wheel row, per replica
         (INT_MAX if none): the occupancy bitmap (whl_fill > 0) rotated to
-        start at tick t, packed into words, then a lowest-set-bit scan —
-        O(W) instead of a min over all W*B slots.  Row candidates equal
-        the true arrival for in-horizon entries and never overshoot for
-        stale ones, so jumps never skip a pending message."""
-        occ = state.whl_fill > 0  # [R, W]
-        rot = torch.roll(occ, shifts=-(t % self.wheel_rows), dims=1)
-        d = lowest_set_bit(pack_bool_words(rot))
+        start at tick t, packed into words in one pass, then a
+        lowest-set-bit scan — O(W) instead of a min over all W*B slots.
+        Row candidates equal the true arrival for in-horizon entries and
+        never overshoot for stale ones, so jumps never skip a pending
+        message."""
+        words = pack_occupied(state.whl_fill, t % self.wheel_rows)  # [R, W/32]
+        d = lowest_set_bit(words)
         # an empty row reads 32 from lowest_set_bit: the any() guard decides
-        return torch.where(occ.any(1), t + d, INT_MAX).to(torch.int32)
+        return torch.where(words.any(-1), t + d, INT_MAX).to(torch.int32)
 
     def pending_messages(self, state: SimState) -> torch.Tensor:
         """Quiescence summary per replica: occupied wheel rows (popcount
@@ -721,7 +721,7 @@ class BatchedNetwork:
         ovf = state.ovf_valid.sum(-1).to(torch.int32)
         if self.flat:
             return ovf
-        return popcount_words(pack_bool_words(state.whl_fill > 0)) + ovf
+        return popcount_words(pack_occupied(state.whl_fill, 0)) + ovf
 
     def occupancy(self, state: SimState) -> dict:
         """Observability: each replica's wheel-fill high-water and overflow

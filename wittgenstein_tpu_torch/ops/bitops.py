@@ -9,10 +9,10 @@ space is the bit permutation j -> j ^ (r ^ s) (`xor_shuffle`).
 Words are uint32 in the JAX package.  Torch has no usable uint32
 arithmetic, so the port carries every word as an int32 tensor with the
 same bits.  `popcount_words`, `lowest_set_bit` and `pack_bool_words`,
-and the fused-operand forms `popcount_binop`, `cand_score` and
-`lowest_set_bit_andnot`, dispatch on the tensor's device: a CUDA tensor
-launches the hand-written kernel (ops/kernels.py, sources in ops/csrc), a
-CPU tensor runs the plain PyTorch version below.  There is no other route
+and the fused-operand forms `popcount_binop`, `cand_score`,
+`lowest_set_bit_andnot` and `pack_occupied`, dispatch on the tensor's
+device: a CUDA tensor launches the hand-written kernel (ops/kernels.py,
+sources in ops/csrc), a CPU tensor runs the plain PyTorch version below.  There is no other route
 and no fallback.  Each fused form's plain version is the composition of
 elementwise ops and the one-operand plain versions that its kernel
 replaces.
@@ -134,6 +134,13 @@ def pack_bool_words(bits: torch.Tensor) -> torch.Tensor:
     return pack_bool_words_plain(bits)
 
 
+def pack_occupied_plain(fill: torch.Tensor, shift: int) -> torch.Tensor:
+    """Plain version of the occupancy kernel: the wheel sites' composition,
+    [..., W] int32 fill -> [..., ceil(W/32)] int32 words of the row rotated
+    left by shift (mod W) and tested > 0."""
+    return pack_bool_words_plain(torch.roll(fill > 0, -(shift % fill.shape[-1]), -1))
+
+
 def _route(name: str, *xs) -> bool:
     """True for CUDA operands (launch the kernel), False for CPU ones (run
     the plain version); any other device raises."""
@@ -187,6 +194,15 @@ def lowest_set_bit_andnot(a: torch.Tensor, b: torch.Tensor):
     if _route("lowest_set_bit_andnot", a, b):
         return kernels.lowest_set_bit_andnot(a, b)
     return lowest_set_bit_andnot_plain(a, b)
+
+
+def pack_occupied(fill: torch.Tensor, shift: int) -> torch.Tensor:
+    """The wheel's occupancy words: pack_bool_words(roll(fill > 0, -shift,
+    -1)) of an int32 [..., W] fill, shift a host int; on the card one pass
+    over the fill, read in place."""
+    if _route("pack_occupied", fill):
+        return kernels.pack_occupied(fill, shift)
+    return pack_occupied_plain(fill, shift)
 
 
 def xor_shuffle(words: torch.Tensor, v) -> torch.Tensor:

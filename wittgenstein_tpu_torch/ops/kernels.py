@@ -146,6 +146,7 @@ PACK_LIB = CudaLibrary("pack_bool_words.cu")
 LIBRARIES = (POPCOUNT_LIB, LOWEST_LIB, PACK_LIB)
 _POPCOUNT_TPU = "wittgenstein_tpu/ops/bitops_pallas.py:80 popcount_words_pallas"
 _LOWEST_TPU = "wittgenstein_tpu/ops/bitops_pallas.py:162 lowest_set_bit_pallas"
+_PACK_TPU = "wittgenstein_tpu/ops/bitops_pallas.py:110 pack_bool_words_pallas"
 
 # (words, out, m, w, stream)
 POPCOUNT = CudaKernel("popcount_words", POPCOUNT_LIB, [_P, _P, _L, _I, _P], _POPCOUNT_TPU)
@@ -164,12 +165,11 @@ LOWEST_SET_BIT_ANDNOT = CudaKernel(
     "lowest_set_bit_andnot", LOWEST_LIB, [_P, _P, _P, _P, _P, _I, _P], _LOWEST_TPU
 )
 # (bits, out, m, w, stream)
-PACK_BOOL_WORDS = CudaKernel(
-    "pack_bool_words", PACK_LIB, [_P, _P, _L, _I, _P],
-    "wittgenstein_tpu/ops/bitops_pallas.py:110 pack_bool_words_pallas",
-)
+PACK_BOOL_WORDS = CudaKernel("pack_bool_words", PACK_LIB, [_P, _P, _L, _I, _P], _PACK_TPU)
+# (fill, out, m, w, shift, stream)
+PACK_OCCUPIED = CudaKernel("pack_occupied", PACK_LIB, [_P, _P, _L, _I, _I, _P], _PACK_TPU)
 KERNELS = (POPCOUNT, POPCOUNT_BINOP, CAND_SCORE, LOWEST_SET_BIT, LOWEST_SET_BIT_ANDNOT,
-           PACK_BOOL_WORDS)
+           PACK_BOOL_WORDS, PACK_OCCUPIED)
 
 
 def build_all() -> None:
@@ -246,15 +246,18 @@ def _check_rows(kernel: CudaKernel, m: int) -> None:
         raise ValueError(f"{kernel.name}: {m} rows, at most {MAX_ROWS}")
 
 
-def _launch(kernel: CudaKernel, x: torch.Tensor, out: torch.Tensor, m: int) -> torch.Tensor:
-    """Launch a one-operand `kernel` over the m rows of x into out."""
+def _launch(
+    kernel: CudaKernel, x: torch.Tensor, out: torch.Tensor, m: int, *extra
+) -> torch.Tensor:
+    """Launch a one-operand `kernel` over the m rows of x into out; `extra`
+    follows the row width in the C call."""
     _check_rows(kernel, m)
     if m == 0:
         return out
     # broadcast or strided operands of the one-operand forms become dense
     # rows before the launch
     x = x.contiguous()
-    kernel.call(x.data_ptr(), out.data_ptr(), m, x.shape[-1])
+    kernel.call(x.data_ptr(), out.data_ptr(), m, x.shape[-1], *extra)
     return out
 
 
@@ -373,10 +376,25 @@ def lowest_set_bit_andnot(a: torch.Tensor, b: torch.Tensor):
     return has, low
 
 
+def _packed_out(x: torch.Tensor) -> torch.Tensor:
+    """The [..., ceil(W/32)] int32 words of a [..., W] operand."""
+    return torch.empty(x.shape[:-1] + ((x.shape[-1] + 31) // 32,), dtype=torch.int32,
+                       device=x.device)
+
+
 def pack_bool_words(bits: torch.Tensor) -> torch.Tensor:
     """CUDA kernel: [..., W] bool -> [..., ceil(W/32)] int32 words (torch
     bool is one byte, which the kernel reads as uint8)."""
     _check_operand(PACK_BOOL_WORDS, bits, torch.bool)
-    lead, w = bits.shape[:-1], bits.shape[-1]
-    out = torch.empty(lead + ((w + 31) // 32,), dtype=torch.int32, device=bits.device)
+    out = _packed_out(bits)
     return _launch(PACK_BOOL_WORDS, bits, out, out.numel() // out.shape[-1])
+
+
+def pack_occupied(fill: torch.Tensor, shift: int) -> torch.Tensor:
+    """CUDA kernel: pack_bool_words(roll(fill > 0, -shift, -1)) of an int32
+    [..., W] fill in one pass, without the bool or rolled copies; shift
+    is a host int, taken mod W."""
+    _check_operand(PACK_OCCUPIED, fill, torch.int32)
+    out = _packed_out(fill)
+    return _launch(PACK_OCCUPIED, fill, out, out.numel() // out.shape[-1],
+                   int(shift) % fill.shape[-1])
