@@ -1,8 +1,9 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it end to end.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases kernels,identity,...]
 
-Phases, each printing one JSON line; any failure raises and exits non-zero:
+Phases, each printing one JSON line; any failure raises and exits non-zero
+(`--phases` runs a subset while developing; the default runs them all):
 
   1. device     require CUDA; print the card's name and power limit
                 (nvidia-smi) on a line of its own
@@ -22,12 +23,17 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 every width bucket of the flagship, pack_bool_words also at
                 [262144, 512] for bandwidth, pack_occupied at PingPong's
                 and Dfinity's wheels beside the composition it replaces
-                (> 0, roll, pack_bool_words)
+                (> 0, roll, pack_bool_words); then (aggregation_shapes)
+                cand_score with K = 10, 8 and 1, popcount_binop and
+                lowest_set_bit at every width bucket of GSF at 2048 nodes
+                x 32 replicas, and pack_bool_words on P2PHandel's payload
+                rows [R*N, 120] and [R*N*P, 120] at R = 1024
   4. identity   the port on the CPU (plain versions) and on CUDA (kernels)
                 give identical state in every leaf: batched Handel at 64
                 nodes x 2 replicas x 300 ms, flagship-shaped and with
                 byzantine_suicide; PingPong at 64 nodes x 2 x 300 ms;
-                Dfinity (default) x 2 x 7000 ms
+                Dfinity (default) x 2 x 7000 ms; GSF at 256 nodes x 2 x
+                300 ms; P2PHandel (72 nodes) x 2 x 1500 ms
   5. flagship   the Handel main path: make_handel(flagship_params(4096)),
                 replicate_state(R=16), run_ms_batched in 20-ms chunks up to
                 1000 ms with stop_when_done; every live node must finish and
@@ -37,7 +43,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 warm ticks): kernels and device time per tick, the device's
                 busy share of a tick, the ops that take the device time and
                 each hand-written kernel's device time by name
-  7. byzantine  4096 nodes, 1024 down, byzantine_suicide, R=4, 1000 ms;
+  7. byzantine  4096 nodes, 1024 down, byzantine_suicide, R=4, 400 ms;
                 lowest_set_bit_andnot must have launched in this run; then
                 lowest_set_bit and lowest_set_bit_andnot are timed on the
                 run's own eligibility rows (byz, bl) of every width bucket
@@ -51,7 +57,16 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
  10. dfinity    make_dfinity(max_heights=64), R=1024, 15000 ms: nothing may
                 drop, every replica's head height (its highest notarized
                 block) reaches 4, and pack_occupied must have launched
- 11. kernels    one line listing every ported kernel with its numbers
+ 11. gsf        GSF at 2048 nodes (BASELINE config 2), R = 32, 1000 ms in
+                20-ms chunks with stop_when_done: every node must finish,
+                and the popcount family and lowest_set_bit must launch;
+                then gsf_profile, a 10-tick torch.profiler window
+ 12. p2phandel  P2PHandel at the reference defaults, R = 1024, up to
+                10000 ms with stop_when_done on the 512-row wheel: every
+                node must finish, nothing may drop, pack_bool_words must
+                launch; then p2p_profile, a 20-tick torch.profiler window
+ 13. launches_by_path  each path's launch count of every form
+ 14. kernels    one line listing every ported kernel with its numbers
 
 The last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -71,8 +86,12 @@ from wittgenstein_tpu_torch.engine import replicate_state
 from wittgenstein_tpu_torch.interop import state_to_numpy
 from wittgenstein_tpu_torch.ops import bitops, kernels
 from wittgenstein_tpu_torch.protocols.dfinity_batched import make_dfinity
+from wittgenstein_tpu_torch.protocols.gsf import GSFSignatureParameters
+from wittgenstein_tpu_torch.protocols.gsf_batched import BatchedGSF, make_gsf
 from wittgenstein_tpu_torch.protocols.handel import HandelParameters, flagship_params
 from wittgenstein_tpu_torch.protocols.handel_batched import BatchedHandel, make_handel
+from wittgenstein_tpu_torch.protocols.p2phandel import P2PHandelParameters
+from wittgenstein_tpu_torch.protocols.p2phandel_batched import make_p2phandel
 from wittgenstein_tpu_torch.protocols.pingpong_batched import make_pingpong
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak (NVIDIA data sheet, at 700 W)
@@ -80,6 +99,7 @@ INT_OPS_PER_S = 67e12  # 32-bit rate outside the tensor cores (same sheet's fp32
 FLAGSHIP_NODES = 4096
 FLAGSHIP_REPLICAS = 16
 BYZ_REPLICAS = 4
+BYZ_MS = 400  # depth cut from 1000 ms to keep the script near half its time limit
 CHUNK_MS = 20
 SIM_MS = 1000
 PP_NODES = 1000
@@ -87,6 +107,13 @@ PP_REPLICAS = 4096
 PP_MS = 700
 DF_REPLICAS = 1024
 DF_MS = 15000
+GSF_NODES = 2048
+GSF_REPLICAS = 32
+P2P_REPLICAS = 1024
+P2P_MS = 10000
+# the JAX package's P2PHandel test parameters (small), for the identity
+P2P_SMALL = dict(signing_node_count=64, relaying_node_count=8, threshold=60,
+                 connection_count=12, pairing_time=20, sigs_send_period=200)
 
 
 def emit(obj) -> None:
@@ -591,6 +618,80 @@ def andnot_bucket_times(rows) -> list:
     return out
 
 
+def gsf_buckets() -> list:
+    """(levels per bucket, words per row) of each width bucket of GSF at
+    2048 nodes: w = 1 (levels 1-6), 2, 4, ..., 32."""
+    return [(b.nl, b.w_pad) for b in BatchedGSF(GSFSignatureParameters(node_count=GSF_NODES)).buckets]
+
+
+def _onehot_words(shape, gen) -> torch.Tensor:
+    """[..., w] words with one random bit set per row (GSF's individual
+    candidates)."""
+    w = shape[-1]
+    pos = torch.randint(0, 32 * w, shape[:-1], generator=gen, device=gen.device, dtype=torch.int32)
+    ar = torch.arange(w, dtype=torch.int32, device=gen.device)
+    return torch.where(ar == (pos >> 5)[..., None], (1 << (pos & 31))[..., None], 0)
+
+
+def aggregation_kernels(gen) -> dict:
+    """The forms at the shapes GSF at 2048 nodes x R = 32 and P2PHandel x
+    R = 1024 give them, each held against its plain version (max |err|
+    0) and timed by CUDA-graph replay: cand_score with K = 10 (the
+    delivery merge), 8 (the selection) and 1 (the one-hot individual) and
+    agg = the individuals row; popcount_binop's a & ~b at full width and
+    a & b per bucket; lowest_set_bit on sparse pending rows per bucket;
+    pack_bool_words on the verified rows [R*N, 120] and on [R*N*P, 120].
+    Returns each form's rows and max |err|."""
+    r, n = GSF_REPLICAS, GSF_NODES
+    rows = {"cand_score": [], "popcount_binop": [], "lowest_set_bit": [], "pack_bool_words": []}
+    errs = dict.fromkeys(rows, 0)
+
+    def add(form, tag, shape, fn, plain, bytes_moved, ops, **extra):
+        errs[form] = max(errs[form], _max_err(f"{form} {tag} {shape}", fn(), plain()))
+        rows[form].append({"site": tag, "shape": list(shape), **extra,
+                           **_timed(fn, plain, bytes_moved, ops, plain_reps=2)})
+
+    a, b = _rand_words((r, n, n // 32), gen), _sparse((r, n, n // 32), gen, 0.5)
+    m = r * n
+    add("popcount_binop", "commit_absorb", tuple(a.shape),
+        lambda: kernels.popcount_binop(a, b, "andnot"),
+        lambda: bitops.popcount_binop_plain(a, b, "andnot"),
+        8 * m * (n // 32) + 4 * m, 3 * m * (n // 32))
+    for nl, w in gsf_buckets():
+        vb = _sparse((r, n, nl, w), gen, 0.5)
+        ib = _sparse((r, n, nl, w), gen, 0.05)
+        nodes = r * n * nl
+        for tag, k in (("deliver", 10), ("select", 8), ("select_individual", 1)):
+            sig = (_onehot_words((r, n, nl, k, w), gen) if k == 1
+                   else _sparse((r, n, nl, k, w), gen, 0.5))
+            words = nodes * k * w
+            add("cand_score", tag, tuple(sig.shape),
+                lambda: kernels.cand_score(sig, vb, ib, ib),
+                lambda: bitops.cand_score_plain(sig, vb, ib, ib),
+                4 * (words + 2 * nodes * w) + 16 * nodes * k, 11 * words)
+        sigs = _rand_words((r, n, nl, w), gen)
+        add("popcount_binop", "commit_disjoint", tuple(sigs.shape),
+            lambda: kernels.popcount_binop(sigs, vb, "and"),
+            lambda: bitops.popcount_binop_plain(sigs, vb, "and"),
+            8 * nodes * w + 4 * nodes, 3 * nodes * w)
+        pend = _sparse((r, n, nl, w), gen, 0.02)
+        read = _words_to_first(pend)
+        add("lowest_set_bit", "select_pending", tuple(pend.shape),
+            lambda: kernels.lowest_set_bit(pend), lambda: bitops.lowest_set_bit_plain(pend),
+            4 * read + 4 * nodes, 2 * read, nonzero_rows=int((pend != 0).any(-1).sum()))
+    n_p2p, peers = 120, 54  # P2PHandelParameters(): 100 + 20 nodes, max degree 54
+    for tag, lead in (("verified", P2P_REPLICAS * n_p2p),
+                      ("per_peer", P2P_REPLICAS * n_p2p * peers)):
+        bits = torch.rand((lead, n_p2p), generator=gen, device=gen.device) < 0.9
+        add("pack_bool_words", tag, tuple(bits.shape),
+            lambda: kernels.pack_bool_words(bits), lambda: bitops.pack_bool_words_plain(bits),
+            lead * n_p2p + 4 * lead * 4, lead * n_p2p)
+    for form, timed in rows.items():
+        emit({"phase": "aggregation_shapes", "kernel": form, "max_abs_err": errs[form],
+              "rows": timed})
+    return {"rows": rows, "errs": errs}
+
+
 def _leaf_diff(a: dict, b: dict) -> list:
     bad = []
     for f, va in a.items():
@@ -650,6 +751,33 @@ def small_identity() -> None:
               "seconds": time.perf_counter() - t0})
 
 
+def aggregation_identity() -> None:
+    """GSF at 256 nodes x 2 replicas x 300 ms and P2PHandel (small) x 2 x
+    1500 ms give identical state in every leaf on the CPU and on CUDA."""
+    cases = {
+        "gsf": (lambda dev: make_gsf(GSFSignatureParameters(node_count=256, threshold=253),
+                                     device=dev), 300, 100),
+        "p2phandel": (lambda dev: make_p2phandel(P2PHandelParameters(**P2P_SMALL), device=dev),
+                      1500, 500),
+    }
+    for name, (make, ms, chunk) in cases.items():
+        outs = {}
+        t0 = time.perf_counter()
+        for dev in ("cpu", "cuda"):
+            net, state = make(dev)
+            states = replicate_state(state, 2)
+            for _ in range(ms // chunk):
+                states = net.run_ms_batched(states, chunk)
+            outs[dev] = state_to_numpy(states)
+        bad = _leaf_diff(outs["cpu"], outs["cuda"])
+        if bad:
+            raise AssertionError(f"identity {name}: CPU and CUDA differ in {bad[:10]}")
+        out = outs["cuda"]
+        emit({"phase": "identity", "case": name, "nodes": int(out["x"].shape[-1]), "replicas": 2,
+              "ms": ms, "leaves_equal": True, "done_nodes": int((out["done_at"] > 0).sum()),
+              "dropped": int(out["dropped"].sum()), "seconds": time.perf_counter() - t0})
+
+
 def _quantiles(done: np.ndarray, down: np.ndarray) -> dict:
     live = done[~down]
     fin = live[live > 0]
@@ -658,18 +786,20 @@ def _quantiles(done: np.ndarray, down: np.ndarray) -> dict:
             "done_at_p10": q[0], "done_at_p50": q[1], "done_at_p90": q[2]}
 
 
-def drive(params, replicas: int) -> dict:
-    """The main path as a user drives it; returns its measurements."""
+def drive(params, replicas: int, make=make_handel, ms: int = SIM_MS) -> dict:
+    """A lockstep path (Handel, GSF) as a user drives it: make(params),
+    replicate_state, run_ms_batched in 20-ms chunks with stop_when_done
+    for `ms` ms; returns its measurements."""
     torch.cuda.synchronize()
     t_build = time.perf_counter()
-    net, state = make_handel(params)
+    net, state = make(params)
     states = replicate_state(state, replicas)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t_build
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    for _ in range(SIM_MS // CHUNK_MS):
+    for _ in range(ms // CHUNK_MS):
         states = net.run_ms_batched(states, CHUNK_MS, True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -678,7 +808,7 @@ def drive(params, replicas: int) -> dict:
     down = states.down.cpu().numpy()
     live_done = np.where(down, 1, done)
     # the lockstep loop stops before the tick after the last completion
-    ticks = int(done.max()) + 1 if (live_done > 0).all() else SIM_MS
+    ticks = int(done.max()) + 1 if (live_done > 0).all() else ms
     return {
         "nodes": params.node_count,
         "replicas": replicas,
@@ -710,13 +840,15 @@ def flagship() -> dict:
     return out
 
 
-def profile_window(flag: dict, warm_ticks: int = 100, ticks: int = 10) -> None:
-    """Where a flagship tick's time goes, from a short profiled window."""
+def profile_window(flag: dict, warm_ticks: int = 100, ticks: int = 10, make=None,
+                   replicas: int = FLAGSHIP_REPLICAS, phase: str = "profile") -> None:
+    """Where a lockstep tick's time goes, from a short profiled window;
+    `make` builds the path (the flagship by default)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    net, state = make_handel(flagship_params(4096))
-    states = net.run_ms_batched(replicate_state(state, FLAGSHIP_REPLICAS), warm_ticks)
+    net, state = (make or (lambda: make_handel(flagship_params(4096))))()
+    states = net.run_ms_batched(replicate_state(state, replicas), warm_ticks)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         states = net.run_ms_batched(states, ticks)
@@ -728,11 +860,11 @@ def profile_window(flag: dict, warm_ticks: int = 100, ticks: int = 10) -> None:
     ops = [e for e in prof.key_averages() if e.key.startswith("aten::")]
     ops.sort(key=lambda e: e.self_device_time_total, reverse=True)
     emit({
-        "phase": "profile",
+        "phase": phase,
         "window_ticks": [warm_ticks, warm_ticks + ticks],
         "kernels_per_tick": len(kern) / ticks,
         "device_ms_per_tick": device_ms,
-        # against the unprofiled flagship's wall time per tick
+        # against the unprofiled run's wall time per tick
         "device_busy_share": device_ms / flag["ms_per_tick"],
         "hand_kernels_per_tick": device_ms_by_kernel(kern, ticks),
         "top_ops": [
@@ -748,11 +880,59 @@ def byzantine() -> dict:
         node_count=4096, nodes_down=1024, threshold=int(3072 * 0.99),
         byzantine_suicide=True,
     )
-    out = drive(params, BYZ_REPLICAS)
+    out = drive(params, BYZ_REPLICAS, ms=BYZ_MS)
     if out["launches"]["lowest_set_bit_andnot"] <= 0:
         raise AssertionError("byzantine: lowest_set_bit_andnot kernel never launched")
-    emit({"phase": "byzantine", "nodes_down": 1024,
+    emit({"phase": "byzantine", "nodes_down": 1024, "ms": BYZ_MS,
           **{k: v for k, v in out.items() if not k.startswith("_")}})
+    return out
+
+
+def gsf() -> dict:
+    """GSF at 2048 nodes (BASELINE config 2, the defaults of gsf.py),
+    R = 32, 1000 ms in 20-ms chunks with stop_when_done."""
+    params = GSFSignatureParameters(node_count=GSF_NODES)
+    out = drive(params, GSF_REPLICAS, make=make_gsf)
+    del out["_net"], out["_states"]
+    if not out["_all_live_done"]:
+        raise AssertionError(f"gsf: not every node finished: {out}")
+    for name in ("popcount_words", "popcount_binop", "cand_score", "lowest_set_bit"):
+        if out["launches"][name] <= 0:
+            raise AssertionError(f"gsf: {name} kernel never launched")
+    emit({"phase": "gsf", "threshold": params.threshold,
+          **{k: v for k, v in out.items() if not k.startswith("_")}})
+    return out
+
+
+def p2phandel() -> dict:
+    """P2PHandel at the reference defaults (120 nodes, 40 connections),
+    R = P2P_REPLICAS, stop_when_done, at most P2P_MS ms, on the 512-row
+    wheel: every node must finish and nothing may drop."""
+    t_build = time.perf_counter()
+    net, state = make_p2phandel()
+    states = replicate_state(state, P2P_REPLICAS)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_build
+    states, wall, launches = _timed_run(net, states, P2P_MS, True)
+    done = states.done_at.cpu().numpy()
+    down = states.down.cpu().numpy()
+    dropped = states.dropped.cpu().numpy()
+    q = _quantiles(done, down)
+    if q["done_share"] != 1.0:
+        raise AssertionError(f"p2phandel: done share {q['done_share']}")
+    if dropped.any():
+        raise AssertionError(f"p2phandel: {int(dropped.sum())} messages dropped")
+    if launches["pack_bool_words"] <= 0:
+        raise AssertionError("p2phandel: pack_bool_words kernel never launched")
+    # the per-ms loop stops before the tick after the last completion
+    ticks = int(done.max()) + 1
+    out = {"nodes": int(done.shape[1]), "replicas": P2P_REPLICAS, "build_s": build_s,
+           "wall_s": wall, "sims_per_s": P2P_REPLICAS / wall, "ticks": ticks,
+           "ms_per_tick": wall / ticks * 1e3, "launches": launches,
+           "launches_per_tick": {k: v / ticks for k, v in launches.items()},
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "dropped": int(dropped.sum()), **q}
+    emit({"phase": "p2phandel", **out})
     return out
 
 
@@ -878,40 +1058,86 @@ def dfinity() -> dict:
     return out
 
 
-def main() -> int:
+PHASES = ("kernels", "identity", "flagship", "byzantine", "pingpong", "dfinity", "gsf",
+          "p2phandel")
+
+
+def main(argv) -> int:
+    # `--phases a,b` runs a subset (for development); the default runs every
+    # phase and ends with the kernels line
+    only = set(argv[argv.index("--phases") + 1].split(",")) if "--phases" in argv else None
+    if only is not None and not only <= set(PHASES):
+        raise SystemExit(f"chip_smoke: --phases takes some of {','.join(PHASES)}")
+
+    def want(name: str) -> bool:
+        return only is None or name in only
+
     info = device_info()
     build()
-    rows = run_kernels()
-    small_identity()
-    flag = flagship()
-    profile_window(flag)
-    byz = byzantine()
-    real = lowest_real_rows(byz.pop("_net"), byz.pop("_states"))
-    lowest_rows, andnot_rows = lowest_bucket_times(real), andnot_bucket_times(real)
-    emit({"phase": "byz_rows", "lowest_set_bit": lowest_rows,
-          "lowest_set_bit_andnot": andnot_rows})
-    rows["lowest_set_bit_andnot"].update(andnot_rows[-1])  # the top bucket's rows
-    pp = pingpong()
-    pp_profile(pp)
-    dfinity()
-    # launches: each kernel's count from the run of its path — the
-    # popcount family from the flagship, lowest_set_bit_andnot from the
-    # Byzantine run (the flagship runs no attack, so it never reaches it),
-    # lowest_set_bit and pack_occupied from the PingPong run; the base
-    # pack_bool_words runs on no path since pack_occupied took both wheel
-    # sites, so its count from that run is 0
-    for name in ("popcount_words", "popcount_binop", "cand_score"):
-        rows[name]["launches"] = flag["launches"][name]
-    rows["lowest_set_bit_andnot"]["launches"] = byz["launches"]["lowest_set_bit_andnot"]
-    for name in ("lowest_set_bit", "pack_bool_words", "pack_occupied"):
-        rows[name]["launches"] = pp["launches"][name]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
-    emit({"kernels": [{k: r[k] for k in keys} for r in rows.values()]})
+    runs = {}
+    if want("kernels"):
+        rows = run_kernels()
+        agg = aggregation_kernels(torch.Generator(device="cuda").manual_seed(2))
+    if want("identity"):
+        # the CPU side runs many small ops, which one intra-op thread runs
+        # faster than a pool
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            small_identity()
+            aggregation_identity()
+        finally:
+            torch.set_num_threads(threads)
+    if want("flagship"):
+        runs["flagship"] = flag = flagship()
+        profile_window(flag)
+    if want("byzantine"):
+        runs["byzantine"] = byz = byzantine()
+        real = lowest_real_rows(byz.pop("_net"), byz.pop("_states"))
+        lowest_rows, andnot_rows = lowest_bucket_times(real), andnot_bucket_times(real)
+        emit({"phase": "byz_rows", "lowest_set_bit": lowest_rows,
+              "lowest_set_bit_andnot": andnot_rows})
+    if want("pingpong"):
+        runs["pingpong"] = pp = pingpong()
+        pp_profile(pp)
+    if want("dfinity"):
+        runs["dfinity"] = dfinity()
+    if want("gsf"):
+        runs["gsf"] = g = gsf()
+        profile_window(g, make=lambda: make_gsf(GSFSignatureParameters(node_count=GSF_NODES)),
+                       replicas=GSF_REPLICAS, phase="gsf_profile")
+    if want("p2phandel"):
+        runs["p2phandel"] = p2 = p2phandel()
+        profile_window(p2, ticks=20, make=make_p2phandel, replicas=P2P_REPLICAS,
+                       phase="p2p_profile")
+    # every path's launches of every form, from that path's own run
+    emit({"phase": "launches_by_path",
+          **{path: out["launches"] for path, out in runs.items()}})
+    if only is None:
+        rows["lowest_set_bit_andnot"].update(andnot_rows[-1])  # the top bucket's rows
+        # pack_bool_words' path is P2PHandel's _pack: its numbers at the
+        # verified rows [R*N, 120] replace the wheel shape's
+        rows["pack_bool_words"].update(agg["rows"]["pack_bool_words"][0])
+        for name in ("popcount_binop", "cand_score", "lowest_set_bit", "pack_bool_words"):
+            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], agg["errs"][name])
+        # launches: each kernel's count from the run of its path — the
+        # popcount family from the flagship, lowest_set_bit_andnot from
+        # the Byzantine run (the flagship runs no attack), lowest_set_bit
+        # and pack_occupied from the PingPong run, pack_bool_words from
+        # the P2PHandel run
+        for name in ("popcount_words", "popcount_binop", "cand_score"):
+            rows[name]["launches"] = flag["launches"][name]
+        rows["lowest_set_bit_andnot"]["launches"] = byz["launches"]["lowest_set_bit_andnot"]
+        for name in ("lowest_set_bit", "pack_occupied"):
+            rows[name]["launches"] = pp["launches"][name]
+        rows["pack_bool_words"]["launches"] = runs["p2phandel"]["launches"]["pack_bool_words"]
+        keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms")
+        emit({"kernels": [{k: r[k] for k in keys} for r in rows.values()]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],
                                  "count": info["count"]}})
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -1,6 +1,6 @@
 """Time the port's runs from two checkouts on one card, in turns.
 
-    python3 scripts/torch_ab.py OLD_ROOT NEW_ROOT [--cells handel,pingpong,dfinity]
+    python3 scripts/torch_ab.py OLD_ROOT NEW_ROOT [--cells handel,pingpong,dfinity,gsf,p2phandel]
                                 [--rounds 1] [--byz-ms 300]
 
 Each turn runs one checkout's `wittgenstein_tpu_torch` in a process of its
@@ -17,12 +17,18 @@ through the public entry points only:
              stop_when_done (chip_smoke.py's phase 8)
   dfinity    make_dfinity(max_heights=64), 1024 replicas, 15000 ms
              (chip_smoke.py's phase 10)
+  gsf        make_gsf(GSFSignatureParameters(node_count=2048)), 32
+             replicas, 1000 ms in 20-ms chunks with stop_when_done
+             (chip_smoke.py's gsf phase)
+  p2phandel  make_p2phandel() at the reference defaults, 1024 replicas,
+             up to 10000 ms in 20-ms chunks with stop_when_done
+             (chip_smoke.py's p2phandel phase)
 
 and prints one JSON line per run: wall ms per tick (lockstep Handel) or
 per loop iteration (the event-driven cells), the hand-written kernels'
-launches, and what must not differ between the checkouts (the flagship's
-done_at P10/P50/P90, PingPong's iterations and done ticks, Dfinity's
-iterations and head heights).  The last line sums up each side's median.
+launches, and what must not differ between the checkouts (the lockstep
+cells' done_at P10/P50/P90, PingPong's iterations and done ticks,
+Dfinity's iterations and head heights).  The last line sums up each side's median.
 Needs a CUDA card; imports no JAX.
 """
 
@@ -46,8 +52,8 @@ def emit(cell, **out):
     print(json.dumps({"root": sys.argv[1], "cell": cell, **out,
                       "launches": {k.name: k.launches for k in kernels.KERNELS}}), flush=True)
 
-def run(cell, params, replicas, ms, stop):
-    net, state = make_handel(params)
+def run(cell, params, replicas, ms, stop, make=None):
+    net, state = (make or make_handel)(params)
     states = replicate_state(state, replicas)
     states = net.run_ms_batched(states, 1)  # first launches, builds and caches
     torch.cuda.synchronize()
@@ -108,10 +114,18 @@ if "pingpong" in cells:
 if "dfinity" in cells:
     from wittgenstein_tpu_torch.protocols.dfinity_batched import make_dfinity
     run_jumps("dfinity", lambda: make_dfinity(max_heights=64), 1024, 15000, False)
+if "gsf" in cells:
+    from wittgenstein_tpu_torch.protocols.gsf import GSFSignatureParameters
+    from wittgenstein_tpu_torch.protocols.gsf_batched import make_gsf
+    run("gsf", GSFSignatureParameters(node_count=2048), 32, 1000, True, make=make_gsf)
+if "p2phandel" in cells:
+    from wittgenstein_tpu_torch.protocols.p2phandel_batched import make_p2phandel
+    run("p2phandel", None, 1024, 10000, True, make=lambda _: make_p2phandel())
 """
 
 CELLS = {"handel": ("flagship", "byzantine"), "pingpong": ("pingpong",),
-         "dfinity": ("dfinity",)}
+         "dfinity": ("dfinity",), "gsf": ("gsf",), "p2phandel": ("p2phandel",)}
+LOCKSTEP = ("flagship", "byzantine", "gsf", "p2phandel")
 
 
 def main() -> int:
@@ -146,7 +160,7 @@ def main() -> int:
     for side in ("old", "new"):
         for cell in (c for name in chosen for c in CELLS[name]):
             ms = [r["ms"] for r in runs if r["root"] == side and r["cell"] == cell]
-            unit = "tick" if cell in CELLS["handel"] else "iteration"
+            unit = "tick" if cell in LOCKSTEP else "iteration"
             summary[f"{side}_{cell}_ms_per_{unit}"] = statistics.median(ms)
     print(json.dumps({"summary": summary}), flush=True)
     return 0

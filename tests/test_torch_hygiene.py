@@ -20,7 +20,11 @@ from wittgenstein_tpu_torch.core.registries import registry_network_latencies
 from wittgenstein_tpu_torch.engine import BatchedNetwork, BatchedProtocol
 from wittgenstein_tpu_torch.protocols.handel import HandelParameters, flagship_params
 from wittgenstein_tpu_torch.protocols.dfinity_batched import make_dfinity
+from wittgenstein_tpu_torch.protocols.gsf import GSFSignatureParameters
+from wittgenstein_tpu_torch.protocols.gsf_batched import make_gsf
 from wittgenstein_tpu_torch.protocols.handel_batched import BatchedHandel, make_handel
+from wittgenstein_tpu_torch.protocols.p2phandel import P2PHandelParameters
+from wittgenstein_tpu_torch.protocols.p2phandel_batched import make_p2phandel
 from wittgenstein_tpu_torch.protocols.pingpong_batched import make_pingpong
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -87,6 +91,22 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     net, state = make_handel(params, device="cpu")
     assert net.device.type == "cpu" and state.done_at.device.type == "cpu"
     assert not net.protocol.SCORE_CACHE  # the CPU default arm
+
+
+@pytest.mark.parametrize("make, params", [
+    (make_gsf, GSFSignatureParameters(node_count=64)),
+    (make_p2phandel, P2PHandelParameters(signing_node_count=24, relaying_node_count=8,
+                                         connection_count=6)),
+], ids=["make_gsf", "make_p2phandel"])
+def test_aggregation_entry_points_default_to_cuda(monkeypatch, make, params):
+    """GSF and P2PHandel: CUDA unless asked for the CPU, and without a
+    card the default raises instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make(params)
+    net, state = make(params, device="cpu")
+    assert net.device.type == "cpu" and state.done_at.device.type == "cpu"
+    assert all(v.device.type == "cpu" for v in state.proto.values())
 
 
 class _CoarseProbe(BatchedProtocol):

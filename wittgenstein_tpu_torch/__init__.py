@@ -8,6 +8,7 @@ reference: the port takes the same inputs and yields bit-identical state,
 leaf for leaf (tests/test_torch_*.py).
 
 Entry points (`protocols.handel_batched.make_handel`,
+`protocols.gsf_batched.make_gsf`, `protocols.p2phandel_batched.make_p2phandel`,
 `protocols.pingpong_batched.make_pingpong`,
 `protocols.dfinity_batched.make_dfinity`, `engine.core.BatchedNetwork`)
 run on CUDA unless the caller passes `device="cpu"`; without a card they
@@ -22,8 +23,10 @@ find:
   engine/     SimState, BatchedNetwork (flat store and time wheel, lockstep
               and consensus-jump loops), counter RNG, narrow storage plans
   ops/        packed-bitset ops, their CUDA kernels (ops/csrc) and binding
-  protocols/  batched Handel on the bitset-aggregation base; PingPong and
-              Dfinity on the event-driven path
+  oracle/     the P2P overlay graph builder (host-side, no DES)
+  protocols/  batched Handel and GSF on the bitset-aggregation base;
+              P2PHandel, per-ms on the time wheel; PingPong and Dfinity on
+              the event-driven path
   interop.py  carry a JAX-package state into the port and back
 """
 

@@ -20,8 +20,11 @@ import torch
 from .engine.core import SimState
 
 # proto leaves the JAX package carries as uint32 words (the bitset
-# aggregation protocols' vectors and channel/candidate content)
-WORD_LEAVES = ("agg", "ind", "inc", "ver_sig", "bl", "byz")
+# aggregation protocols' vectors and channel/candidate content); a leaf of
+# one of these names that is not int32 in the port (P2PHandel's bool
+# ver_sig) keeps its own dtype
+WORD_LEAVES = ("agg", "ind", "inc", "ver_sig", "bl", "byz", "ver", "indiv", "ind_seen",
+               "pend_ind")
 WORD_LEAF_PREFIXES = ("in_sig", "cand_sig")
 
 
@@ -68,7 +71,7 @@ def state_from_numpy(tree, device) -> SimState:
 
 def _to_numpy(t: torch.Tensor, word: bool) -> np.ndarray:
     a = t.detach().cpu().numpy()
-    return a.view(np.uint32) if word else a
+    return a.view(np.uint32) if word and a.dtype == np.int32 else a
 
 
 def state_to_numpy(state: SimState) -> dict:

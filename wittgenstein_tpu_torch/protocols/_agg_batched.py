@@ -1,4 +1,4 @@
-"""Shared machinery for batched bitset-aggregation protocols (Handel).
+"""Shared machinery for batched bitset-aggregation protocols (Handel, GSF).
 
 Ported from the JAX package's protocols/_agg_batched.py; its docstring
 tells the design in full.  In short: per-node contribution bitsets live
@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from ..engine.protocol import BatchedProtocol
-from ..ops.bitops import xor_shuffle
+from ..ops.bitops import lowest_set_bit, xor_shuffle
 from ..ops.indexing import add_at, set_rows
 
 INT32_MAX = 2**31 - 1
@@ -204,6 +204,13 @@ class BitsetAggBase(BatchedProtocol):
         ar = torch.arange(w, dtype=torch.int32, device=r0.device)
         return torch.where(ar == word[..., None], oh[..., None], 0)
 
+    @staticmethod
+    def _lowest_bit(words):
+        """Index of the lowest set bit over the last axis of packed [..., w]
+        int32 words (32 when empty — gate on popcount > 0); shared with the
+        engine's wheel-occupancy scan."""
+        return lowest_set_bit(words)
+
     def _getbit(self, x, pos):
         """Bit `pos` of full-width [R, N, W] vectors; pos is [R, N, ...]."""
         lead = pos.shape[:2]
@@ -277,7 +284,8 @@ class BitsetAggBase(BatchedProtocol):
         return torch.stack([sig[..., sidx, :], sig[..., d, :]], dim=-2)
 
     # -- the stacked send path -----------------------------------------------
-    def _send_stacked(self, net, state, t: int, mask, from_idx, to_idx, level, content):
+    def _send_stacked(self, net, state, t: int, mask, from_idx, to_idx, level, content,
+                      aux=None):
         """Send M messages per replica (one per row, each at its own level)
         into the per-(receiver, level, slot) channel in ONE body: earliest
         arrival wins an arrival slot, the newest offer always takes the
@@ -286,8 +294,8 @@ class BitsetAggBase(BatchedProtocol):
         mask/to_idx/level: [R, M]; from_idx: [R, M] or [M]; level in
         [1, L-1]; content: list aligned with self.buckets of [R, M, w_pad]
         SENDER-space words, re-addressed into the receiver's block-local
-        space here.  (The JAX package's optional per-slot `aux` column
-        serves other protocols and is not ported.)"""
+        space here; aux: optional [R, M] int32 stored per slot in
+        proto["in_aux"] (GSF's prefix k), written where the content is."""
         proto = state.proto
         d = self.CHANNEL_DEPTH
         ss = d + 1
@@ -369,6 +377,14 @@ class BitsetAggBase(BatchedProtocol):
             vals = torch.cat([cnt_list[i], cnt_list[i]], 1)
             updates[f"in_sig{i}"] = set_rows(
                 a, pos.reshape(-1, b.w_pad), vals.reshape(-1, b.w_pad), keep.reshape(-1)
+            )
+        if aux is not None:
+            aux = aux.to(torch.int32).expand(r, m)
+            updates["in_aux"] = set_rows(
+                proto["in_aux"],
+                torch.cat([kidx, fidx], 1).reshape(-1, 1),
+                torch.cat([aux, aux], 1).reshape(-1, 1),
+                torch.cat([winner, fresh_win], 1).reshape(-1),
             )
         return state._replace(proto=updates)
 

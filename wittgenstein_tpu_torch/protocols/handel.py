@@ -1,9 +1,10 @@
 """Handel parameters (reference: protocols/Handel.java; arXiv:1906.05132).
 
-A copy of the JAX package's `HandelParameters` with its validation, the
-shared aggregation-parameter normalization, and the oracle network's
-bad-node draw — everything `make_handel` needs to build the same
-population from the same JavaRandom stream.
+A copy of the JAX package's `HandelParameters` with its validation; the
+shared aggregation-parameter normalization and the oracle network's
+bad-node draw live in `_aggregation.py` and are re-exported here under
+their names, so `make_handel` and its callers build the same population
+from the same JavaRandom stream.
 """
 
 from __future__ import annotations
@@ -11,37 +12,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-from ..utils.javarand import JavaRandom
-
-
-def normalize_agg_params(p) -> None:
-    """Threshold/nodes_down normalization + validation shared by the
-    aggregation parameter classes: -1 -> 99% default, float -> ratio of
-    node_count (mirroring the reference's int vs ratio constructor
-    overloads)."""
-    if p.threshold == -1:
-        p.threshold = int(p.node_count * 0.99)
-    elif isinstance(p.threshold, float):
-        p.threshold = int(p.threshold * p.node_count)
-    if isinstance(p.nodes_down, float):
-        p.nodes_down = int(p.nodes_down * p.node_count)
-    if (
-        p.nodes_down >= p.node_count
-        or p.nodes_down < 0
-        or p.threshold > p.node_count
-        or (p.nodes_down + p.threshold > p.node_count)
-    ):
-        raise ValueError(f"nodeCount={p.node_count}, threshold={p.threshold}")
-
-
-def choose_bad_nodes(rd: JavaRandom, node_count: int, nodes_down: int) -> set:
-    """Random bad-node set; node 1 always kept up (Network.java:52-64)."""
-    bad = set()
-    while len(bad) < nodes_down:
-        down = rd.next_int(node_count)
-        if down != 1 and down not in bad:
-            bad.add(down)
-    return bad
+from ._aggregation import choose_bad_nodes, normalize_agg_params  # noqa: F401
 
 
 @dataclasses.dataclass

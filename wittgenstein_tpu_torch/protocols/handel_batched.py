@@ -43,7 +43,8 @@ from ..ops.bitops import (
 )
 from ..utils.javarand import JavaRandom
 from ._agg_batched import INT32_MAX, BitsetAggBase, _u32_i32
-from .handel import HandelParameters, choose_bad_nodes
+from ._aggregation import choose_bad_nodes
+from .handel import HandelParameters
 
 _M32 = 0xFFFFFFFF
 
