@@ -27,13 +27,21 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 cand_score with K = 10, 8 and 1, popcount_binop and
                 lowest_set_bit at every width bucket of GSF at 2048 nodes
                 x 32 replicas, and pack_bool_words on P2PHandel's payload
-                rows [R*N, 120] and [R*N*P, 120] at R = 1024
-  4. identity   the port on the CPU (plain versions) and on CUDA (kernels)
-                give identical state in every leaf: batched Handel at 64
+                rows [R*N, 120] and [R*N*P, 120] at R = 1024; then
+                (eth2_shapes) HandelEth2's sites at 256 nodes x R = 64:
+                popcount_words on the _card rows [R*N*P*L, 64], and the
+                sizeIfMerged counts of _select over [R, N, P, L, K, H]
+                candidate rows as the port computes them — popcount_words
+                + popcount_binop "and"/"or" with the node rows broadcast
+                over K, and the three together
+  4. identity   the port on the CPU (plain versions, run in worker
+                processes meanwhile) and on CUDA (kernels) give identical
+                state in every leaf: batched Handel at 64
                 nodes x 2 replicas x 300 ms, flagship-shaped and with
                 byzantine_suicide; PingPong at 64 nodes x 2 x 300 ms;
                 Dfinity (default) x 2 x 7000 ms; GSF at 256 nodes x 2 x
-                300 ms; P2PHandel (72 nodes) x 2 x 1500 ms
+                300 ms; P2PHandel (72 nodes) x 2 x 1500 ms; HandelEth2 at
+                32 nodes x 2 x 700 ms; SanFermin at 64 nodes x 2 x 1500 ms
   5. flagship   the Handel main path: make_handel(flagship_params(4096)),
                 replicate_state(R=16), run_ms_batched in 20-ms chunks up to
                 1000 ms with stop_when_done; every live node must finish and
@@ -65,8 +73,24 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 10000 ms with stop_when_done on the 512-row wheel: every
                 node must finish, nothing may drop, pack_bool_words must
                 launch; then p2p_profile, a 20-tick torch.profiler window
- 13. launches_by_path  each path's launch count of every form
- 14. kernels    one line listing every ported kernel with its numbers
+ 13. handeleth2 HandelEth2 at 256 nodes, R = 64, 2000 ms on the 512-row
+                wheel (the height-1001 process completes every level by
+                1000 ms): nothing may drop, every node of every replica
+                must hold 256 incoming contributions, replica 0 must give
+                the JAX package's seed-0 traffic (21711 received, 21960
+                sent), and the popcount forms must launch; eth2_profile is
+                a 20-tick torch.profiler window over ticks 1000-1019 (the
+                beat tick 1001 among them) inside the run
+ 14. sanfermin  SanFermin at 4096 nodes (BASELINE config 5 with Dfinity),
+                capacity 1 << 16, R = 1024, 3000 ms: nothing may drop, and
+                replica 0 must give the JAX package's seed-0 result (4078
+                nodes done, thr_at P10/P50/P90 1044/1260/1580, min 815, max
+                2109, 156424 received, 91655 requests); sf_profile is a
+                20-tick window over ticks 1500-1519 inside the run.  Its
+                path calls no hand-written kernel (the per-ms loop reads no
+                wheel occupancy summary)
+ 15. launches_by_path  each path's launch count of every form
+ 16. kernels    one line listing every ported kernel with its numbers
 
 The last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -74,6 +98,7 @@ The last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import multiprocessing
 import re
 import subprocess
 import sys
@@ -90,9 +115,13 @@ from wittgenstein_tpu_torch.protocols.gsf import GSFSignatureParameters
 from wittgenstein_tpu_torch.protocols.gsf_batched import BatchedGSF, make_gsf
 from wittgenstein_tpu_torch.protocols.handel import HandelParameters, flagship_params
 from wittgenstein_tpu_torch.protocols.handel_batched import BatchedHandel, make_handel
+from wittgenstein_tpu_torch.protocols.handeleth2 import HandelEth2Parameters, handeleth2_roles
+from wittgenstein_tpu_torch.protocols.handeleth2_batched import BatchedHandelEth2, make_handeleth2
 from wittgenstein_tpu_torch.protocols.p2phandel import P2PHandelParameters
 from wittgenstein_tpu_torch.protocols.p2phandel_batched import make_p2phandel
 from wittgenstein_tpu_torch.protocols.pingpong_batched import make_pingpong
+from wittgenstein_tpu_torch.protocols.sanfermin import SanFerminSignatureParameters
+from wittgenstein_tpu_torch.protocols.sanfermin_batched import make_sanfermin
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak (NVIDIA data sheet, at 700 W)
 INT_OPS_PER_S = 67e12  # 32-bit rate outside the tensor cores (same sheet's fp32)
@@ -111,6 +140,14 @@ GSF_NODES = 2048
 GSF_REPLICAS = 32
 P2P_REPLICAS = 1024
 P2P_MS = 10000
+ETH2_NODES = 256
+ETH2_REPLICAS = 64
+ETH2_MS = 2000
+SF_NODES = 4096
+SF_REPLICAS = 1024
+SF_MS = 3000
+SF_CAPACITY = 1 << 16
+PROFILE_TICKS = 20
 # the JAX package's P2PHandel test parameters (small), for the identity
 P2P_SMALL = dict(signing_node_count=64, relaying_node_count=8, threshold=60,
                  connection_count=12, pairing_time=20, sigs_send_period=200)
@@ -488,6 +525,29 @@ def device_ms_by_kernel(kern, per: float) -> dict:
     return out
 
 
+def forms_by_kernel(kern, per: float) -> dict:
+    """Device ms and calls per tick of each popcount form: popcount_rows
+    serves popcount_words (template OP_NONE = 0) and popcount_binop (OP 1-3),
+    told apart by the first template argument of the profiler's kernel
+    name; popcount_narrow is popcount_words', cand_score_rows cand_score's."""
+    out = {}
+    for e in kern:
+        m = re.match(r"(?:void\s+)?(\w+)(?:<([^,>]*))?", e.name)
+        if not m:
+            continue
+        fn, op = m.group(1), m.group(2) or ""
+        if fn == "popcount_rows":
+            words = "NONE" in op or re.sub(r"\D", "", op) == "0"
+            form = "popcount_words" if words else "popcount_binop"
+        else:
+            form = {"popcount_narrow": "popcount_words", "cand_score_rows": "cand_score"}.get(fn)
+        if form:
+            row = out.setdefault(form, {"calls": 0, "device_ms": 0.0})
+            row["calls"] += 1 / per
+            row["device_ms"] += e.device_time / 1e3 / per
+    return out
+
+
 CHECK_WIDTHS = (1, 2, 3, 4, 5, 31, 32, 33, 64, 100)
 
 
@@ -692,6 +752,58 @@ def aggregation_kernels(gen) -> dict:
     return {"rows": rows, "errs": errs}
 
 
+def sf_params(n: int) -> SanFerminSignatureParameters:
+    """The form of SanFermin's scenario main (sanfermin.py:339 of the JAX
+    package): threshold n, pairing 2 ms, 48-byte signatures, 300-ms reply
+    timeout, one extra candidate."""
+    return SanFerminSignatureParameters(n, n, 2, 48, 300, 1, False, None, None)
+
+
+def eth2_kernels(gen) -> dict:
+    """HandelEth2's popcount sites at 256 nodes x R = 64, each held against
+    its plain version and timed by CUDA-graph replay: popcount_words on
+    the _card rows (H * nw = 64 words); the sizeIfMerged counts of
+    _select over the [R, N, P, L, K, H] candidate rows of nw = 8 words —
+    popcount_words (|cand|) and popcount_binop "and"/"or" with the node
+    rows broadcast over K, the port's merge_counts, also timed whole.
+    Returns the rows and each form's max |err|."""
+    params = HandelEth2Parameters(node_count=ETH2_NODES)
+    proto = BatchedHandelEth2(params, handeleth2_roles(params)[1])
+    r, n, p_, nl, k, h, nw = (ETH2_REPLICAS, ETH2_NODES, 3, proto.nl, proto.CAND_SLOTS, 8,
+                              proto.nw)
+    lead = (r, n, p_, nl)
+    nodes = int(np.prod(lead)) * h  # node rows [R, N, P, L, H]
+    m = nodes * k  # candidate rows
+    inc = _sparse(lead + (h, nw), gen, 0.3)
+    ind = inc & _sparse(lead + (h, nw), gen, 0.6)
+    cand = _sparse(lead + (k, h, nw), gen, 0.2)
+    rows, errs = [], {"popcount_words": 0, "popcount_binop": 0}
+
+    def add(form, site, shape, fn, plain, bytes_moved, ops, plain_reps=1):
+        errs[form] = max(errs[form], _max_err(f"{form} {site}", fn(), plain()))
+        rows.append({"kernel": form, "site": site, "shape": list(shape),
+                     **_timed(fn, plain, bytes_moved, ops, plain_reps=plain_reps)})
+
+    card = inc.reshape(-1, h * nw)
+    add("popcount_words", "card", card.shape, lambda: kernels.popcount_words(card),
+        lambda: bitops.popcount_words_plain(card), 4 * card.numel() + 4 * card.shape[0],
+        2 * card.numel())
+    add("popcount_words", "select_av_c", cand.shape, lambda: kernels.popcount_words(cand),
+        lambda: bitops.popcount_words_plain(cand), 4 * m * nw + 4 * m, 2 * m * nw)
+    for op, node in (("and", inc), ("or", ind)):
+        a = node[..., None, :, :]
+        add("popcount_binop", f"select_{op}", cand.shape,
+            lambda: kernels.popcount_binop(a, cand, op),
+            lambda: bitops.popcount_binop_plain(a, cand, op),
+            4 * (m * nw + nodes * nw) + 4 * m, 3 * m * nw)
+    # the whole of the port's route: the three counts together
+    rows.append({"kernel": "merge_counts", "site": "popcount_binop_route",
+                 "shape": list(cand.shape),
+                 "ms": graph_ms(lambda: proto.merge_counts(inc, ind, cand))})
+    emit({"phase": "eth2_shapes", "max_abs_err": errs, "rows": rows})
+    return {"rows": rows, "errs": errs}
+
+
 def _leaf_diff(a: dict, b: dict) -> list:
     bad = []
     for f, va in a.items():
@@ -708,74 +820,64 @@ def _leaf_diff(a: dict, b: dict) -> list:
     return bad
 
 
-def small_identity() -> None:
-    cases = {
-        "flagship_shaped": flagship_params(64),
-        "byzantine_suicide": HandelParameters(
-            node_count=64, nodes_down=16, threshold=47, byzantine_suicide=True
-        ),
-    }
-    for name, params in cases.items():
-        outs = {}
-        t0 = time.perf_counter()
-        for dev in ("cpu", "cuda"):
-            net, state = make_handel(params, score_cache=True, device=dev)
-            states = replicate_state(state, 2)
-            for _ in range(3):
-                states = net.run_ms_batched(states, 100)
-            outs[dev] = state_to_numpy(states)
-        bad = _leaf_diff(outs["cpu"], outs["cuda"])
-        if bad:
-            raise AssertionError(f"identity {name}: CPU and CUDA differ in {bad[:10]}")
-        done = outs["cuda"]["done_at"]
-        emit({"phase": "identity", "case": name, "nodes": 64, "replicas": 2, "ms": 300,
-              "leaves_equal": True, "done_nodes": int((done > 0).sum()),
-              "seconds": time.perf_counter() - t0})
-    event_cases = {
-        "pingpong": (lambda dev: make_pingpong(64, device=dev), 300),
-        "dfinity": (lambda dev: make_dfinity(device=dev), 7000),
-    }
-    for name, (make, ms) in event_cases.items():
-        outs = {}
-        t0 = time.perf_counter()
-        for dev in ("cpu", "cuda"):
-            net, state = make(dev)
-            outs[dev] = state_to_numpy(net.run_ms_batched(replicate_state(state, 2), ms))
-        bad = _leaf_diff(outs["cpu"], outs["cuda"])
-        if bad:
-            raise AssertionError(f"identity {name}: CPU and CUDA differ in {bad[:10]}")
-        out = outs["cuda"]
-        emit({"phase": "identity", "case": name, "nodes": int(out["x"].shape[-1]),
-              "replicas": 2, "ms": ms, "leaves_equal": True,
-              "overflow_live": out["ovf_valid"].sum(-1).tolist(),
-              "seconds": time.perf_counter() - t0})
+# identity cases: (build on a device, ms, chunk); each runs 2 replicas
+IDENTITY = {
+    "flagship_shaped": (lambda dev: make_handel(flagship_params(64), score_cache=True,
+                                                device=dev), 300, 100),
+    "byzantine_suicide": (lambda dev: make_handel(HandelParameters(
+        node_count=64, nodes_down=16, threshold=47, byzantine_suicide=True),
+        score_cache=True, device=dev), 300, 100),
+    "pingpong": (lambda dev: make_pingpong(64, device=dev), 300, 300),
+    "dfinity": (lambda dev: make_dfinity(device=dev), 7000, 7000),
+    "gsf": (lambda dev: make_gsf(GSFSignatureParameters(node_count=256, threshold=253),
+                                 device=dev), 300, 100),
+    "p2phandel": (lambda dev: make_p2phandel(P2PHandelParameters(**P2P_SMALL), device=dev),
+                  1500, 500),
+    "handeleth2": (lambda dev: make_handeleth2(HandelEth2Parameters(node_count=32),
+                                               device=dev), 700, 350),
+    "sanfermin": (lambda dev: make_sanfermin(sf_params(64), device=dev), 1500, 500),
+}
 
 
-def aggregation_identity() -> None:
-    """GSF at 256 nodes x 2 replicas x 300 ms and P2PHandel (small) x 2 x
-    1500 ms give identical state in every leaf on the CPU and on CUDA."""
-    cases = {
-        "gsf": (lambda dev: make_gsf(GSFSignatureParameters(node_count=256, threshold=253),
-                                     device=dev), 300, 100),
-        "p2phandel": (lambda dev: make_p2phandel(P2PHandelParameters(**P2P_SMALL), device=dev),
-                      1500, 500),
-    }
-    for name, (make, ms, chunk) in cases.items():
-        outs = {}
-        t0 = time.perf_counter()
-        for dev in ("cpu", "cuda"):
-            net, state = make(dev)
-            states = replicate_state(state, 2)
-            for _ in range(ms // chunk):
-                states = net.run_ms_batched(states, chunk)
-            outs[dev] = state_to_numpy(states)
-        bad = _leaf_diff(outs["cpu"], outs["cuda"])
-        if bad:
-            raise AssertionError(f"identity {name}: CPU and CUDA differ in {bad[:10]}")
-        out = outs["cuda"]
-        emit({"phase": "identity", "case": name, "nodes": int(out["x"].shape[-1]), "replicas": 2,
-              "ms": ms, "leaves_equal": True, "done_nodes": int((out["done_at"] > 0).sum()),
-              "dropped": int(out["dropped"].sum()), "seconds": time.perf_counter() - t0})
+def identity_state(case: str, dev: str) -> dict:
+    """One identity case on one device: 2 replicas run in chunks; the
+    state as numpy leaves."""
+    make, ms, chunk = IDENTITY[case]
+    net, state = make(dev)
+    states = replicate_state(state, 2)
+    for _ in range(ms // chunk):
+        states = net.run_ms_batched(states, chunk)
+    return state_to_numpy(states)
+
+
+def _one_thread() -> None:
+    # the CPU side runs many small ops, which one intra-op thread runs
+    # faster than a pool
+    torch.set_num_threads(1)
+
+
+def identity() -> None:
+    """Each IDENTITY case gives identical state in every leaf on the CPU
+    (plain versions) and on CUDA (kernels).  The CPU sides run in worker
+    processes while this one runs the CUDA sides; every worker is joined
+    or terminated when the phase ends."""
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(4, initializer=_one_thread) as pool:
+        cpu = {case: pool.apply_async(identity_state, (case, "cpu")) for case in IDENTITY}
+        for case, (_, ms, _) in IDENTITY.items():
+            t0 = time.perf_counter()
+            out = identity_state(case, "cuda")
+            bad = _leaf_diff(cpu[case].get(), out)
+            if bad:
+                raise AssertionError(f"identity {case}: CPU and CUDA differ in {bad[:10]}")
+            emit({"phase": "identity", "case": case, "nodes": int(out["x"].shape[-1]),
+                  "replicas": 2, "ms": ms, "leaves_equal": True,
+                  "done_nodes": int((out["done_at"] > 0).sum()),
+                  "dropped": int(out["dropped"].sum()),
+                  "overflow_live": out["ovf_valid"].sum(-1).tolist(),
+                  "seconds": time.perf_counter() - t0})
+        pool.close()
+        pool.join()
 
 
 def _quantiles(done: np.ndarray, down: np.ndarray) -> dict:
@@ -867,6 +969,7 @@ def profile_window(flag: dict, warm_ticks: int = 100, ticks: int = 10, make=None
         # against the unprofiled run's wall time per tick
         "device_busy_share": device_ms / flag["ms_per_tick"],
         "hand_kernels_per_tick": device_ms_by_kernel(kern, ticks),
+        "popcount_forms_per_tick": forms_by_kernel(kern, ticks),
         "top_ops": [
             {"op": e.key, "calls_per_tick": e.count / ticks,
              "device_ms_per_tick": e.self_device_time_total / 1e3 / ticks}
@@ -1058,8 +1161,151 @@ def dfinity() -> dict:
     return out
 
 
+def _profile_ticks(net, states, ticks: int, phase: str):
+    """A torch.profiler window of `ticks` ticks inside a lockstep run;
+    returns (states, the window's numbers)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = int(states.time.reshape(-1)[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        states = net.run_ms_batched(states, ticks)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kern:
+        raise AssertionError(f"{phase}: the profiler recorded no device activity")
+    ops = [e for e in prof.key_averages() if e.key.startswith("aten::")]
+    ops.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    return states, {
+        "phase": phase,
+        "window_ticks": [t0, t0 + ticks],
+        "kernels_per_tick": len(kern) / ticks,
+        "device_ms_per_tick": sum(e.device_time for e in kern) / 1e3 / ticks,
+        "hand_kernels_per_tick": device_ms_by_kernel(kern, ticks),
+        "popcount_forms_per_tick": forms_by_kernel(kern, ticks),
+        "top_ops": [
+            {"op": e.key, "calls_per_tick": e.count / ticks,
+             "device_ms_per_tick": e.self_device_time_total / 1e3 / ticks}
+            for e in ops[:10]
+        ],
+    }
+
+
+def _profiled_run(net, states, ms: int, at: int, phase: str):
+    """A lockstep run of `ms` ticks as a user drives it, with the launch
+    counts zeroed just before and read just after, and a PROFILE_TICKS
+    window at tick `at` inside it (its ticks are left out of the wall
+    time).  Returns (states, wall seconds, timed ticks, launches, the
+    window's numbers)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    wall = 0.0
+    t0 = time.perf_counter()
+    states = net.run_ms_batched(states, at)
+    torch.cuda.synchronize()
+    wall += time.perf_counter() - t0
+    states, window = _profile_ticks(net, states, PROFILE_TICKS, phase)
+    t0 = time.perf_counter()
+    states = net.run_ms_batched(states, ms - at - PROFILE_TICKS)
+    torch.cuda.synchronize()
+    wall += time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    ticks = ms - PROFILE_TICKS
+    window["device_busy_share"] = window["device_ms_per_tick"] / (wall / ticks * 1e3)
+    return states, wall, ticks, launches, window
+
+
+def handeleth2() -> dict:
+    """HandelEth2 at 256 nodes (the default parameters otherwise), R =
+    ETH2_REPLICAS, ETH2_MS ms on the 512-row wheel, with eth2_profile at
+    ticks 1000-1019."""
+    t_build = time.perf_counter()
+    net, state = make_handeleth2(HandelEth2Parameters(node_count=ETH2_NODES))
+    states = replicate_state(state, ETH2_REPLICAS)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_build
+    states, wall, ticks, launches, window = _profiled_run(net, states, ETH2_MS, 1000,
+                                                          "eth2_profile")
+    p = states.proto
+    dropped = states.dropped.cpu().numpy()
+    if dropped.any():
+        raise AssertionError(f"handeleth2: {int(dropped.sum())} messages dropped")
+    # the height-1001 process complete at every level: 1 + 1 + 2 + ... +
+    # 128 incoming contributions per node, the other slots still empty
+    card = bitops.popcount_words(p["inc"].reshape(ETH2_REPLICAS, ETH2_NODES, -1)).cpu().numpy()
+    if not (card == ETH2_NODES).all():
+        short = np.argwhere(card != ETH2_NODES)
+        raise AssertionError(f"handeleth2: {len(short)} (replica, node) pairs short of "
+                             f"{ETH2_NODES}, first {short[:5].tolist()}")
+    r0 = {"msg_received": int(states.msg_received[0].sum()),
+          "msg_sent": int(states.msg_sent[0].sum()),
+          "rr_bump": int(p["rr_bump"][0].sum()),
+          "window_min": int(p["window"][0].min()), "window_max": int(p["window"][0].max())}
+    want = {"msg_received": 21711, "msg_sent": 21960, "rr_bump": 21711, "window_min": 128,
+            "window_max": 128}
+    if r0 != want:
+        raise AssertionError(f"handeleth2: replica 0 gives {r0}, the JAX package {want}")
+    for name in ("popcount_words", "popcount_binop"):
+        if launches[name] <= 0:
+            raise AssertionError(f"handeleth2: {name} kernel never launched")
+    out = {"nodes": ETH2_NODES, "replicas": ETH2_REPLICAS, "ms": ETH2_MS,
+           "build_s": build_s, "wall_s": wall,
+           "ms_per_tick": wall / ticks * 1e3, "sims_per_s": ETH2_REPLICAS / wall,
+           "launches": launches, "launches_per_tick": {k: v / ETH2_MS for k, v in launches.items()},
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "replica0": r0, "msg_received_per_replica_min": int(
+               states.msg_received.sum(-1).min()),
+           "dropped": int(dropped.sum())}
+    emit({"phase": "handeleth2", **out})
+    emit(window)
+    return out
+
+
+def sanfermin() -> dict:
+    """SanFermin at 4096 nodes (BASELINE config 5 with Dfinity), capacity
+    SF_CAPACITY, R = SF_REPLICAS, SF_MS ms, with sf_profile at ticks
+    1500-1519."""
+    t_build = time.perf_counter()
+    net, state = make_sanfermin(sf_params(SF_NODES), capacity=SF_CAPACITY)
+    states = replicate_state(state, SF_REPLICAS)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_build
+    states, wall, ticks, launches, window = _profiled_run(net, states, SF_MS, 1500, "sf_profile")
+    p = states.proto
+    dropped = states.dropped.cpu().numpy()
+    if dropped.any():
+        raise AssertionError(f"sanfermin: {int(dropped.sum())} messages dropped")
+    done = p["done"].cpu().numpy()
+    thr = p["thr_at"][0].cpu().numpy()[done[0]]
+    q = np.percentile(thr, [10, 50, 90], method="nearest").astype(int).tolist() if thr.size else []
+    r0 = {"done": int(done[0].sum()), "thr_at_p10_p50_p90": q,
+          "thr_at_min": int(thr.min()) if thr.size else None,
+          "thr_at_max": int(thr.max()) if thr.size else None,
+          "msg_received": int(states.msg_received[0].sum()),
+          "sent_req": int(p["sent_req"][0].sum())}
+    want = {"done": 4078, "thr_at_p10_p50_p90": [1044, 1260, 1580], "thr_at_min": 815,
+            "thr_at_max": 2109, "msg_received": 156424, "sent_req": 91655}
+    if r0 != want:
+        raise AssertionError(f"sanfermin: replica 0 gives {r0}, the JAX package {want}")
+    per_replica = done.sum(-1)
+    out = {"nodes": SF_NODES, "replicas": SF_REPLICAS, "ms": SF_MS, "capacity": SF_CAPACITY,
+           "build_s": build_s, "wall_s": wall, "ms_per_tick": wall / ticks * 1e3,
+           "sims_per_s": SF_REPLICAS / wall, "launches": launches,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "replica0": r0, "done_share": float(done.mean()),
+           "done_per_replica_min": int(per_replica.min()),
+           "done_per_replica_max": int(per_replica.max()),
+           "replicas_all_done": int((per_replica == SF_NODES).sum()),
+           "dropped": int(dropped.sum())}
+    emit({"phase": "sanfermin", **out})
+    emit(window)
+    return out
+
+
 PHASES = ("kernels", "identity", "flagship", "byzantine", "pingpong", "dfinity", "gsf",
-          "p2phandel")
+          "p2phandel", "handeleth2", "sanfermin")
 
 
 def main(argv) -> int:
@@ -1078,16 +1324,9 @@ def main(argv) -> int:
     if want("kernels"):
         rows = run_kernels()
         agg = aggregation_kernels(torch.Generator(device="cuda").manual_seed(2))
+        eth2 = eth2_kernels(torch.Generator(device="cuda").manual_seed(3))
     if want("identity"):
-        # the CPU side runs many small ops, which one intra-op thread runs
-        # faster than a pool
-        threads = torch.get_num_threads()
-        torch.set_num_threads(1)
-        try:
-            small_identity()
-            aggregation_identity()
-        finally:
-            torch.set_num_threads(threads)
+        identity()
     if want("flagship"):
         runs["flagship"] = flag = flagship()
         profile_window(flag)
@@ -1110,6 +1349,10 @@ def main(argv) -> int:
         runs["p2phandel"] = p2 = p2phandel()
         profile_window(p2, ticks=20, make=make_p2phandel, replicas=P2P_REPLICAS,
                        phase="p2p_profile")
+    if want("handeleth2"):
+        runs["handeleth2"] = handeleth2()
+    if want("sanfermin"):
+        runs["sanfermin"] = sanfermin()
     # every path's launches of every form, from that path's own run
     emit({"phase": "launches_by_path",
           **{path: out["launches"] for path, out in runs.items()}})
@@ -1120,6 +1363,8 @@ def main(argv) -> int:
         rows["pack_bool_words"].update(agg["rows"]["pack_bool_words"][0])
         for name in ("popcount_binop", "cand_score", "lowest_set_bit", "pack_bool_words"):
             rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], agg["errs"][name])
+        for name, err in eth2["errs"].items():
+            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
         # launches: each kernel's count from the run of its path — the
         # popcount family from the flagship, lowest_set_bit_andnot from
         # the Byzantine run (the flagship runs no attack), lowest_set_bit
@@ -1133,7 +1378,13 @@ def main(argv) -> int:
         rows["pack_bool_words"]["launches"] = runs["p2phandel"]["launches"]["pack_bool_words"]
         keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms")
-        emit({"kernels": [{k: r[k] for k in keys} for r in rows.values()]})
+        # beside the main path's count, each path's own (HandelEth2's and
+        # SanFermin's among them)
+        emit({"kernels": [
+            {**{k: r[k] for k in keys},
+             "launches_by_path": {path: out["launches"][r["name"]] for path, out in runs.items()}}
+            for r in rows.values()
+        ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],
                                  "count": info["count"]}})
     return 0

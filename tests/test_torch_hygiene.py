@@ -22,10 +22,14 @@ from wittgenstein_tpu_torch.protocols.handel import HandelParameters, flagship_p
 from wittgenstein_tpu_torch.protocols.dfinity_batched import make_dfinity
 from wittgenstein_tpu_torch.protocols.gsf import GSFSignatureParameters
 from wittgenstein_tpu_torch.protocols.gsf_batched import make_gsf
+from wittgenstein_tpu_torch.protocols.handeleth2 import HandelEth2Parameters
+from wittgenstein_tpu_torch.protocols.handeleth2_batched import make_handeleth2
 from wittgenstein_tpu_torch.protocols.handel_batched import BatchedHandel, make_handel
 from wittgenstein_tpu_torch.protocols.p2phandel import P2PHandelParameters
 from wittgenstein_tpu_torch.protocols.p2phandel_batched import make_p2phandel
 from wittgenstein_tpu_torch.protocols.pingpong_batched import make_pingpong
+from wittgenstein_tpu_torch.protocols.sanfermin import SanFerminSignatureParameters
+from wittgenstein_tpu_torch.protocols.sanfermin_batched import make_sanfermin
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = Path(wittgenstein_tpu_torch.__file__).resolve().parent
@@ -97,10 +101,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     (make_gsf, GSFSignatureParameters(node_count=64)),
     (make_p2phandel, P2PHandelParameters(signing_node_count=24, relaying_node_count=8,
                                          connection_count=6)),
-], ids=["make_gsf", "make_p2phandel"])
+    (make_handeleth2, HandelEth2Parameters(node_count=16)),
+    (make_sanfermin, SanFerminSignatureParameters(64, 64, 2, 48, 300, 1, False, None, None)),
+], ids=["make_gsf", "make_p2phandel", "make_handeleth2", "make_sanfermin"])
 def test_aggregation_entry_points_default_to_cuda(monkeypatch, make, params):
-    """GSF and P2PHandel: CUDA unless asked for the CPU, and without a
-    card the default raises instead of running on the CPU."""
+    """GSF, P2PHandel, HandelEth2 and SanFermin: CUDA unless asked for the
+    CPU, and without a card the default raises instead of running on the
+    CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make(params)

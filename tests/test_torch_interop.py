@@ -1,0 +1,99 @@
+"""The interop round trip keeps every protocol's JAX dtypes.
+
+`state_from_numpy` takes a JAX-package state into the port (uint32 words
+as int32 bit views) and `state_to_numpy` gives it back; which leaves are
+words is each protocol's own `WORD_LEAVES`, found from the state's proto
+keys (`PROTO_KEYS`, declared by the protocols that carry words).  For every ported protocol the
+round trip must give back the JAX state exactly — name, dtype, shape and
+bits — including SanFermin's int32 `agg` (a word in Handel), HandelEth2's
+uint32 words and P2PHandel's bool `ver_sig` (a word in Handel and GSF).
+"""
+
+import jax
+import numpy as np
+import pytest
+
+from wittgenstein_tpu.protocols.dfinity_batched import make_dfinity as jdfinity
+from wittgenstein_tpu.protocols.gsf import GSFSignatureParameters
+from wittgenstein_tpu.protocols.gsf_batched import make_gsf as jgsf
+from wittgenstein_tpu.protocols.handel import HandelParameters
+from wittgenstein_tpu.protocols.handel_batched import make_handel as jhandel
+from wittgenstein_tpu.protocols.handeleth2 import HandelEth2Parameters
+from wittgenstein_tpu.protocols.handeleth2_batched import make_handeleth2 as jeth2
+from wittgenstein_tpu.protocols.p2phandel import P2PHandelParameters
+from wittgenstein_tpu.protocols.p2phandel_batched import make_p2phandel as jp2p
+from wittgenstein_tpu.protocols.pingpong_batched import make_pingpong as jpingpong
+from wittgenstein_tpu.protocols.sanfermin import SanFerminSignatureParameters
+from wittgenstein_tpu.protocols.sanfermin_batched import make_sanfermin as jsanfermin
+from wittgenstein_tpu_torch.interop import (
+    ported_protocols,
+    protocol_of,
+    state_from_numpy,
+    state_to_numpy,
+)
+
+# name: (JAX builder, the port's protocol class name, words the JAX state holds);
+# the class is the one protocol_of finds, None for a protocol without words
+BUILDS = {
+    "handel": (lambda: jhandel(HandelParameters(node_count=64, threshold=63)),
+               "BatchedHandel", {"agg", "ind", "inc", "ver_sig", "in_sig0", "cand_sig0"}),
+    "handel_byzantine": (
+        lambda: jhandel(HandelParameters(node_count=64, nodes_down=16, threshold=47,
+                                         byzantine_suicide=True)),
+        "BatchedHandel", {"agg", "ind", "inc", "ver_sig", "in_sig0", "cand_sig0", "bl", "byz"}),
+    "gsf": (lambda: jgsf(GSFSignatureParameters(node_count=64)), "BatchedGSF",
+            {"ver", "indiv", "ind_seen", "pend_ind", "ver_sig", "in_sig0", "cand_sig0"}),
+    "p2phandel": (lambda: jp2p(P2PHandelParameters(
+        signing_node_count=24, relaying_node_count=8, connection_count=6)),
+        None, set()),
+    "pingpong": (lambda: jpingpong(64), None, set()),
+    "dfinity": (jdfinity, None, set()),
+    "handeleth2": (lambda: jeth2(HandelEth2Parameters(node_count=16)), "BatchedHandelEth2",
+                   {"fin_peers", "inc", "ind", "out", "c_atts", "v_atts"}),
+    "sanfermin": (lambda: jsanfermin(SanFerminSignatureParameters(
+        64, 64, 2, 48, 300, 1, False, None, None)), "BatchedSanFermin", {"pending"}),
+}
+
+
+def jax_numpy(state) -> dict:
+    d = jax.tree_util.tree_map(np.asarray, state)._asdict()
+    d["proto"] = dict(d["proto"])
+    return d
+
+
+@pytest.mark.parametrize("name", list(BUILDS))
+def test_round_trip_keeps_jax_dtypes(name):
+    build, cls_name, words = BUILDS[name]
+    _, jstate = build()
+    want = jax_numpy(jstate)
+    assert {k for k, v in want["proto"].items() if v.dtype == np.uint32} == words
+    ts = state_from_numpy(want, "cpu")
+    cls = protocol_of(ts.proto)
+    assert (cls and cls.__name__) == cls_name
+    got = state_to_numpy(ts)
+    assert set(got) == set(want)
+    for f, w in want.items():
+        if f == "proto":
+            assert set(got[f]) == set(w)
+            for k, v in w.items():
+                g = got[f][k]
+                assert g.dtype == v.dtype and g.shape == v.shape, f"{name}: proto.{k}"
+                assert np.array_equal(g, v), f"{name}: proto.{k}"
+        elif isinstance(w, np.ndarray):
+            assert got[f].dtype == w.dtype and np.array_equal(got[f], w), f"{name}: {f}"
+    # every word leaf is an int32 bit view inside the port
+    assert all(str(ts.proto[k].dtype) == "torch.int32" for k in words)
+
+
+def test_every_ported_protocol_declares_its_state():
+    """Each ported protocol with word leaves names the proto keys that
+    identify its state, and no two protocols' keys identify the same
+    state; a protocol without words declares no keys."""
+    classes = ported_protocols()
+    assert len(classes) == 7
+    assert sum(bool(c.WORD_LEAVES) for c in classes) == 4  # Handel, GSF, HandelEth2, SanFermin
+    for cls in classes:
+        assert bool(cls.PROTO_KEYS) == bool(cls.WORD_LEAVES), cls.__name__
+        if cls.PROTO_KEYS:
+            assert protocol_of(cls.PROTO_KEYS) is cls
+    assert protocol_of(["pong_count", "x"]) is None  # a probe protocol: no words

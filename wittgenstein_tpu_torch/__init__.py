@@ -9,6 +9,8 @@ leaf for leaf (tests/test_torch_*.py).
 
 Entry points (`protocols.handel_batched.make_handel`,
 `protocols.gsf_batched.make_gsf`, `protocols.p2phandel_batched.make_p2phandel`,
+`protocols.handeleth2_batched.make_handeleth2`,
+`protocols.sanfermin_batched.make_sanfermin`,
 `protocols.pingpong_batched.make_pingpong`,
 `protocols.dfinity_batched.make_dfinity`, `engine.core.BatchedNetwork`)
 run on CUDA unless the caller passes `device="cpu"`; without a card they
@@ -25,8 +27,8 @@ find:
   ops/        packed-bitset ops, their CUDA kernels (ops/csrc) and binding
   oracle/     the P2P overlay graph builder (host-side, no DES)
   protocols/  batched Handel and GSF on the bitset-aggregation base;
-              P2PHandel, per-ms on the time wheel; PingPong and Dfinity on
-              the event-driven path
+              P2PHandel, HandelEth2 and SanFermin, per-ms on the time
+              wheel; PingPong and Dfinity on the event-driven path
   interop.py  carry a JAX-package state into the port and back
 """
 

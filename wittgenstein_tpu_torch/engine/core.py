@@ -163,6 +163,15 @@ class Emission:
     send_time: "int | torch.Tensor | None" = None  # default: t + 1
     arrival: Optional[torch.Tensor] = None  # explicit arrival times [R, K]
 
+    @classmethod
+    def no_rows(cls, r: int, mtype: int, payload_width: int, device) -> "Emission":
+        """An emission with no rows for R replicas: it changes no state but
+        takes its send counter, as one whose every row is masked does."""
+        ids = torch.zeros(0, dtype=torch.int32, device=device)
+        return cls(mask=torch.zeros((r, 0), dtype=torch.bool, device=device), from_idx=ids,
+                   to_idx=ids, mtype=mtype,
+                   payload=torch.zeros((r, 0, payload_width), dtype=torch.int32, device=device))
+
 
 class BatchedNetwork:
     """The engine: binds a latency model and a protocol to the step and

@@ -44,6 +44,12 @@ class BatchedProtocol:
     BEAT_SEND_CALLS: int = 0
     # narrow-storage declarations (engine.density.NarrowLeaf)
     NARROW_LEAVES: tuple = ()
+    # proto leaves the JAX package carries as uint32 words (int32 bit views
+    # here; a name ending in "*" is a prefix), and, for a protocol with
+    # words, the proto keys that identify its state — interop.state_to_numpy
+    # reads both
+    WORD_LEAVES: tuple = ()
+    PROTO_KEYS: tuple = ()
 
     def n_msg_types(self) -> int:
         return max(1, len(self.MSG_TYPES))

@@ -6,8 +6,11 @@
 SimState on `device`: the same leaf names and shapes, uint32 words as
 int32 bit views, every other leaf in its own dtype.  `state_to_numpy`
 does the reverse, giving back uint32 for the leaves the JAX package
-carries as words.  With the two, both packages can start from one state
-and be compared leaf by leaf.  This module imports nothing of JAX.
+carries as words.  Which leaves those are is the protocol's to say: each
+batched protocol lists them in `WORD_LEAVES` (a name may be a
+protocol's word in one protocol and a count in another, as `agg` is in
+Handel and SanFermin).  With the two, both packages can start from one
+state and be compared leaf by leaf.  This module imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -19,17 +22,42 @@ import torch
 
 from .engine.core import SimState
 
-# proto leaves the JAX package carries as uint32 words (the bitset
-# aggregation protocols' vectors and channel/candidate content); a leaf of
-# one of these names that is not int32 in the port (P2PHandel's bool
-# ver_sig) keeps its own dtype
-WORD_LEAVES = ("agg", "ind", "inc", "ver_sig", "bl", "byz", "ver", "indiv", "ind_seen",
-               "pend_ind")
-WORD_LEAF_PREFIXES = ("in_sig", "cand_sig")
+
+def ported_protocols() -> tuple:
+    """The port's batched protocol classes (imported here, not at module
+    load: they import the engine, as this module does)."""
+    from .protocols.dfinity_batched import BatchedDfinity
+    from .protocols.gsf_batched import BatchedGSF
+    from .protocols.handel_batched import BatchedHandel
+    from .protocols.handeleth2_batched import BatchedHandelEth2
+    from .protocols.p2phandel_batched import BatchedP2PHandel
+    from .protocols.pingpong_batched import BatchedPingPong
+    from .protocols.sanfermin_batched import BatchedSanFermin
+
+    return (BatchedHandel, BatchedGSF, BatchedP2PHandel, BatchedPingPong, BatchedDfinity,
+            BatchedHandelEth2, BatchedSanFermin)
 
 
-def is_word_leaf(name: str) -> bool:
-    return name in WORD_LEAVES or name.startswith(WORD_LEAF_PREFIXES)
+def protocol_of(proto_keys):
+    """The ported protocol class whose PROTO_KEYS all appear among a
+    state's proto keys, or None: a protocol without word leaves declares
+    no PROTO_KEYS, and its leaves, like those of a protocol of no ported
+    class, are all taken as non-words."""
+    keys = set(proto_keys)
+    hits = [c for c in ported_protocols() if c.PROTO_KEYS and set(c.PROTO_KEYS) <= keys]
+    if len(hits) > 1:
+        raise ValueError(f"proto keys match several protocols: {[c.__name__ for c in hits]}")
+    return hits[0] if hits else None
+
+
+def is_word_leaf(protocol, name: str) -> bool:
+    """Whether `protocol` (a batched protocol class or instance) carries
+    proto leaf `name` as uint32 words; a WORD_LEAVES entry ending in "*"
+    names a prefix."""
+    for w in protocol.WORD_LEAVES if protocol is not None else ():
+        if name == w or (w.endswith("*") and name.startswith(w[:-1])):
+            return True
+    return False
 
 
 def _fields(tree) -> Mapping[str, Any]:
@@ -41,12 +69,12 @@ def _fields(tree) -> Mapping[str, Any]:
 
 
 def _to_tensor(a, device) -> torch.Tensor:
-    a = np.ascontiguousarray(np.asarray(a))
+    a = np.array(a, order="C")  # a copy; 0-d leaves (a single replica's clock) stay 0-d
     if a.dtype == np.uint32:
         a = a.view(np.int32)
     elif a.dtype.kind == "u":
         raise TypeError(f"unsupported unsigned leaf dtype {a.dtype}")
-    return torch.from_numpy(a.copy()).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def state_from_numpy(tree, device) -> SimState:
@@ -71,17 +99,22 @@ def state_from_numpy(tree, device) -> SimState:
 
 def _to_numpy(t: torch.Tensor, word: bool) -> np.ndarray:
     a = t.detach().cpu().numpy()
-    return a.view(np.uint32) if word and a.dtype == np.int32 else a
+    if word and a.dtype != np.int32:
+        raise TypeError(f"a word leaf must be an int32 bit view, got {a.dtype}")
+    return a.view(np.uint32) if word else a
 
 
 def state_to_numpy(state: SimState) -> dict:
     """The port's SimState as a dict of numpy leaves in the JAX package's
-    dtypes (proto as a nested dict; empty side-cars stay ())."""
+    dtypes (proto as a nested dict; empty side-cars stay ()).  The word
+    leaves are those of the ported protocol the proto's keys identify
+    (`protocol_of`); a state of no such protocol has none."""
+    protocol = protocol_of(state.proto)
     out = {}
     for f in SimState._fields:
         v = getattr(state, f)
         if f == "proto":
-            out[f] = {k: _to_numpy(a, is_word_leaf(k)) for k, a in v.items()}
+            out[f] = {k: _to_numpy(a, is_word_leaf(protocol, k)) for k, a in v.items()}
         elif isinstance(v, torch.Tensor):
             out[f] = _to_numpy(v, False)
         else:

@@ -42,3 +42,28 @@ def set_rows(a: torch.Tensor, flat_idx: torch.Tensor, vals: torch.Tensor,
     ext = torch.cat([a.reshape(-1), a.new_zeros(w)])
     ext.index_put_((idx.reshape(-1),), vals.reshape(-1).to(a.dtype))
     return ext[:n].view(a.shape)
+
+
+def live_rows(masks):
+    """Compact the live rows of [R, K] masks: for each mask, None if no
+    replica has a live row, else (idx [R, M], live [R, M]) — each
+    replica's live row indices first, in order, padded with masked rows
+    (index 0), M the most live rows of any replica.  One device read for
+    all the masks."""
+    if not masks:
+        return []
+    counts = [m.sum(-1) for m in masks]
+    sizes = torch.stack([c.amax() for c in counts]).tolist()
+    out = []
+    for m, c, m2 in zip(masks, counts, sizes):
+        if m2 == 0:
+            out.append(None)
+            continue
+        r, k = m.shape
+        pos = m.to(torch.int64).cumsum(-1) - 1
+        idx = torch.zeros((r, m2 + 1), dtype=torch.int64, device=m.device)
+        idx.scatter_(1, torch.where(m, pos, m2),
+                     torch.arange(k, device=m.device).expand(r, k))
+        live = torch.arange(m2, device=m.device) < c[:, None]
+        out.append((idx[:, :m2], live))
+    return out

@@ -34,6 +34,7 @@ from ..core.registries import registry_network_latencies, registry_node_builders
 from ..engine.core import BatchedNetwork, resolve_device
 from ..engine.rng import hash32
 from ..ops.bitops import block_mask, cand_score, popcount_binop, popcount_words
+from ..ops.indexing import live_rows
 from ..utils.javarand import JavaRandom
 from ._agg_batched import INT32_MAX, BitsetAggBase
 from ._aggregation import choose_bad_nodes
@@ -42,6 +43,8 @@ from .gsf import GSFSignatureParameters
 
 class BatchedGSF(BitsetAggBase):
     CAND_SLOTS = 8  # K: score-curated verification candidates per level
+    WORD_LEAVES = ("ver", "indiv", "ind_seen", "pend_ind", "ver_sig", "in_sig*", "cand_sig*")
+    PROTO_KEYS = ("ver", "ind_seen")
 
     def __init__(self, params: GSFSignatureParameters):
         self.params = params
@@ -286,19 +289,20 @@ class BatchedGSF(BitsetAggBase):
             # each row's latency draw hashes its own ids), and a tick
             # bursts from a few nodes of N * (L-1) * acc rows.  One device
             # read sizes the rows; each replica's rows come first, in order
-            m2 = int(mask_b.sum(-1).max())
-            row = torch.sort((~mask_b).to(torch.uint8), dim=1, stable=True).indices[:, :m2]
+            (live,) = live_rows([mask_b])
+            row, sends = live if live is not None else (
+                torch.zeros((r, 0), dtype=torch.int64, device=dev), mask_b[:, :0])
             pair = row // acc  # the row's (node, level) in [N * (L-1)]
             node = (pair // (L - 1)).to(torch.int32)
             content = []
             for b in self.buckets:
                 full = self._full_width(self._lows(havings, b), b).reshape(r, -1, b.w_pad)
-                content.append(torch.gather(full, 1, pair[..., None].expand(r, m2, b.w_pad)))
+                content.append(torch.gather(full, 1, pair[..., None].expand(r, -1, b.w_pad)))
             state = self._send_stacked(
                 net,
                 state,
                 t,
-                torch.gather(mask_b, 1, row),
+                sends,
                 node,
                 torch.gather((ids[:, None, None] ^ relb).reshape(r, -1), 1, row),
                 (pair % (L - 1) + 1).to(torch.int32),

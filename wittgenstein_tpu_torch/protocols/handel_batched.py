@@ -51,6 +51,8 @@ _M32 = 0xFFFFFFFF
 
 class BatchedHandel(BitsetAggBase):
     CAND_SLOTS = 8  # K: arrived verification candidates per (receiver, level)
+    WORD_LEAVES = ("agg", "ind", "inc", "ver_sig", "bl", "byz", "in_sig*", "cand_sig*")
+    PROTO_KEYS = ("agg", "fp_left")
     CHANNEL_DEPTH = 32  # D: arrival slots per (receiver, level)
     # _select reads the END-of-previous-tick candidate and merge state;
     # False reproduces the JAX package's pre-r5 same-tick ablation lever

@@ -138,12 +138,9 @@ class BatchedP2PHandel(BatchedProtocol):
         emission has no rows: it still takes its send counter, and a
         masked row would change nothing else."""
         r = mask.shape[0]
-        ids = torch.arange(self.n_nodes, dtype=torch.int32, device=mask.device)
         if not any_row:
-            return Emission(
-                mask=mask.new_zeros((r, 0)), from_idx=ids[:0], to_idx=ids[:0],
-                mtype=self.mtype(mtype), payload=packed[:, :0],
-            )
+            return Emission.no_rows(r, self.mtype(mtype), self.PAYLOAD_WIDTH, mask.device)
+        ids = torch.arange(self.n_nodes, dtype=torch.int32, device=mask.device)
         return Emission(
             mask=mask.reshape(r, -1),
             from_idx=torch.repeat_interleave(ids, self.n_peers),
