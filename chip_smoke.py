@@ -33,7 +33,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 sizeIfMerged counts of _select over [R, N, P, L, K, H]
                 candidate rows as the port computes them — popcount_words
                 + popcount_binop "and"/"or" with the node rows broadcast
-                over K, and the three together
+                over K, and the three together; then (paxos_shapes) the
+                occupancy forms at Paxos's wheel, R = 8192:
+                pack_occupied on [R, 512] int32 fills, lowest_set_bit and
+                popcount_words on the packed [R, 16] words
   4. identity   the port on the CPU (plain versions, run in worker
                 processes meanwhile) and on CUDA (kernels) give identical
                 state in every leaf: batched Handel at 64
@@ -41,7 +44,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 byzantine_suicide; PingPong at 64 nodes x 2 x 300 ms;
                 Dfinity (default) x 2 x 7000 ms; GSF at 256 nodes x 2 x
                 300 ms; P2PHandel (72 nodes) x 2 x 1500 ms; HandelEth2 at
-                32 nodes x 2 x 700 ms; SanFermin at 64 nodes x 2 x 1500 ms
+                32 nodes x 2 x 700 ms; SanFermin at 64 nodes x 2 x 1500 ms;
+                CasperIMD at its defaults (83 nodes, max_heights 16) x 2 x
+                40000 ms with the "wf" and "sf" producers and under the AWS
+                and IC3 models; Paxos x 2 x 5000 ms with 3 and with 5
+                acceptors
   5. flagship   the Handel main path: make_handel(flagship_params(4096)),
                 replicate_state(R=16), run_ms_batched in 20-ms chunks up to
                 1000 ms with stop_when_done; every live node must finish and
@@ -51,7 +58,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 warm ticks): kernels and device time per tick, the device's
                 busy share of a tick, the ops that take the device time and
                 each hand-written kernel's device time by name
-  7. byzantine  4096 nodes, 1024 down, byzantine_suicide, R=4, 400 ms;
+  7. byzantine  4096 nodes, 1024 down, byzantine_suicide, R=4, 100 ms;
                 lowest_set_bit_andnot must have launched in this run; then
                 lowest_set_bit and lowest_set_bit_andnot are timed on the
                 run's own eligibility rows (byz, bl) of every width bucket
@@ -89,8 +96,28 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 20-tick window over ticks 1500-1519 inside the run.  Its
                 path calls no hand-written kernel (the per-ms loop reads no
                 wheel occupancy summary)
- 15. launches_by_path  each path's launch count of every form
- 16. kernels    one line listing every ported kernel with its numbers
+ 15. casper     CasperIMD at 1024 validators (BASELINE config 4: 1027
+                nodes, cycle_length 4, attesters_per_round 256,
+                max_heights 12), R = 64, 48000 ms on the flat store, once
+                per latency model of the sweep (distance + jitter; AWS
+                regions with the AWS node builder, whose latencies are all
+                1 ms on the batched path, as in the JAX package; IC3):
+                nothing may drop, every replica's chain is linear with 5
+                blocks or more, and replica 0 must give the JAX package's
+                seed-0 outcome (CASPER_R0) under each model; each model's
+                casper_*_profile is a 20-iteration window from iteration
+                100 of a second run.  Its path calls no hand-written kernel
+ 16. paxos      Paxos (3 acceptors, 3 proposers), R = 8192, 5000 ms with
+                stop_when_done on the 512-row wheel (cut from 16384,
+                71.6 s on an H100 at 700 W): no replica's proposers may accept two values,
+                every replica must decide but those the JAX package leaves
+                undecided (PAXOS_UNDECIDED), nothing may drop,
+                replica 0 must give the JAX package's seed-0 run (done_at
+                487/912/226, value 95, 77 received, 78 sent), and
+                pack_occupied, lowest_set_bit and popcount_words must
+                launch; paxos_profile is a 20-iteration window
+ 17. launches_by_path  each path's launch count of every form
+ 18. kernels    one line listing every ported kernel with its numbers
 
 The last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -107,9 +134,12 @@ import time
 import numpy as np
 import torch
 
+from wittgenstein_tpu_torch.core.registries import builder_name
 from wittgenstein_tpu_torch.engine import replicate_state
 from wittgenstein_tpu_torch.interop import state_to_numpy
 from wittgenstein_tpu_torch.ops import bitops, kernels
+from wittgenstein_tpu_torch.protocols.casper import CasperParameters
+from wittgenstein_tpu_torch.protocols.casper_batched import make_casper
 from wittgenstein_tpu_torch.protocols.dfinity_batched import make_dfinity
 from wittgenstein_tpu_torch.protocols.gsf import GSFSignatureParameters
 from wittgenstein_tpu_torch.protocols.gsf_batched import BatchedGSF, make_gsf
@@ -119,6 +149,8 @@ from wittgenstein_tpu_torch.protocols.handeleth2 import HandelEth2Parameters, ha
 from wittgenstein_tpu_torch.protocols.handeleth2_batched import BatchedHandelEth2, make_handeleth2
 from wittgenstein_tpu_torch.protocols.p2phandel import P2PHandelParameters
 from wittgenstein_tpu_torch.protocols.p2phandel_batched import make_p2phandel
+from wittgenstein_tpu_torch.protocols.paxos import PaxosParameters
+from wittgenstein_tpu_torch.protocols.paxos_batched import make_paxos
 from wittgenstein_tpu_torch.protocols.pingpong_batched import make_pingpong
 from wittgenstein_tpu_torch.protocols.sanfermin import SanFerminSignatureParameters
 from wittgenstein_tpu_torch.protocols.sanfermin_batched import make_sanfermin
@@ -128,7 +160,10 @@ INT_OPS_PER_S = 67e12  # 32-bit rate outside the tensor cores (same sheet's fp32
 FLAGSHIP_NODES = 4096
 FLAGSHIP_REPLICAS = 16
 BYZ_REPLICAS = 4
-BYZ_MS = 400  # depth cut from 1000 ms to keep the script near half its time limit
+# depth cut from 1000 ms (to 400, then to 100 when the script with the
+# Casper and Paxos phases ran 836 s and 956 s on H100 80GB HBM3 hosts at
+# 700 W) to keep the script well inside its time limit; it checks launches
+BYZ_MS = 100
 CHUNK_MS = 20
 SIM_MS = 1000
 PP_NODES = 1000
@@ -148,6 +183,34 @@ SF_REPLICAS = 1024
 SF_MS = 3000
 SF_CAPACITY = 1 << 16
 PROFILE_TICKS = 20
+PROFILE_FROM = 100  # the event-driven runs' profiled window starts here
+# BASELINE config 4: CasperIMD with 1024 attesters (1027 nodes), 6 slots,
+# under the three latency models of its sweep
+CASPER_REPLICAS = 64
+CASPER_MS = 48000
+CASPER_HEIGHTS = 12
+CASPER_MODELS = {
+    "distance": {},
+    "aws": dict(node_builder_name=builder_name("AWS", True, 0.0),
+                network_latency_name="AwsRegionNetworkLatency"),
+    "ic3": dict(network_latency_name="IC3NetworkLatency"),
+}
+# the JAX package's seed-0 run of config 4, the same under every model:
+# a linear chain of 5 blocks, and the re-arming timers live at the end
+CASPER_R0 = {"heights": [0, 1, 2, 3, 4, 5], "blk_parent": [-1, 0, 1, 2, 3, 4],
+             "blk_time": [0, 8000, 16000, 24000, 32000, 40000], "head_min": 5, "head_max": 5,
+             "msg_received": 1319695, "msg_sent": 1319695, "msg_head": 1322008,
+             "att_exists": 1280, "rec_att": 1314560, "reeval": 2569, "wf_on_time": 2,
+             "wf_late": 0, "overflow_live": 1026, "overflow_slots": [0, 1025],
+             "overflow_types": [0, 0, 1, 1024, 1, 0, 0], "overflow_arrival_sum": 65640000}
+# cut from 16384, whose run took 71.6 s on an H100 80GB HBM3 at 700 W,
+# past the phase's 60 s
+PAXOS_REPLICAS = 8192
+PAXOS_MS = 5000
+# seeds whose proposers 0 and 1 still duel at 5000 ms (each one's commit
+# rejected after the other's proposal), undecided in the JAX package too
+# (tests/test_torch_paxos.py)
+PAXOS_UNDECIDED = (15639, 16118)
 # the JAX package's P2PHandel test parameters (small), for the identity
 P2P_SMALL = dict(signing_node_count=64, relaying_node_count=8, threshold=60,
                  connection_count=12, pairing_time=20, sigs_send_period=200)
@@ -373,6 +436,35 @@ def check_occupied(gen) -> dict:
             timed[-1]["composition_ms"] = graph_ms(composed)
     pingpong, dfinity = timed
     return _kernel_row(kernel, worst, {**pingpong, "dfinity": dfinity})
+
+
+def paxos_kernels(gen) -> dict:
+    """The occupancy forms at Paxos's wheel, R = PAXOS_REPLICAS:
+    pack_occupied on the [R, 512] int32 fills, lowest_set_bit and
+    popcount_words on the packed [R, 16] words, each against its plain
+    version and timed beside its bound."""
+    fill, shift = _occupancy_fill((PAXOS_REPLICAS, 512), gen).cuda(), 137
+    m, w = fill.shape
+    words = bitops.pack_occupied_plain(fill, shift)
+    nw = words.shape[-1]
+    read = _words_to_first(words)
+    cases = {
+        "pack_occupied": (lambda: kernels.pack_occupied(fill, shift),
+                          lambda: bitops.pack_occupied_plain(fill, shift),
+                          4 * m * w + 4 * m * nw, m * w),
+        "lowest_set_bit": (lambda: kernels.lowest_set_bit(words),
+                           lambda: bitops.lowest_set_bit_plain(words), 4 * read + 4 * m, 2 * read),
+        "popcount_words": (lambda: kernels.popcount_words(words),
+                           lambda: bitops.popcount_words_plain(words),
+                           4 * m * nw + 4 * m, 2 * m * nw),
+    }
+    rows = {}
+    for name, (fn, plain, bytes_moved, ops) in cases.items():
+        err = _max_err(f"{name} at Paxos's wheel", fn(), plain())
+        rows[name] = {"shape": list(fill.shape if name == "pack_occupied" else words.shape),
+                      "max_abs_err": err, **_timed(fn, plain, bytes_moved, ops)}
+    emit({"phase": "paxos_shapes", "replicas": PAXOS_REPLICAS, "rows": rows})
+    return rows
 
 
 def run_kernels() -> dict:
@@ -836,6 +928,16 @@ IDENTITY = {
     "handeleth2": (lambda dev: make_handeleth2(HandelEth2Parameters(node_count=32),
                                                device=dev), 700, 350),
     "sanfermin": (lambda dev: make_sanfermin(sf_params(64), device=dev), 1500, 500),
+    "casper_wf": (lambda dev: make_casper(max_heights=16, device=dev), 40000, 40000),
+    "casper_sf": (lambda dev: make_casper(max_heights=16, byz_variant="sf", device=dev),
+                  40000, 40000),
+    "casper_aws": (lambda dev: make_casper(CasperParameters(**CASPER_MODELS["aws"]),
+                                           max_heights=16, device=dev), 40000, 40000),
+    "casper_ic3": (lambda dev: make_casper(CasperParameters(**CASPER_MODELS["ic3"]),
+                                           max_heights=16, device=dev), 40000, 40000),
+    "paxos": (lambda dev: make_paxos(device=dev), 5000, 5000),
+    "paxos_5_3": (lambda dev: make_paxos(PaxosParameters(acceptor_count=5), device=dev),
+                  5000, 5000),
 }
 
 
@@ -1304,8 +1406,195 @@ def sanfermin() -> dict:
     return out
 
 
+class _WindowDone(Exception):
+    """Ends a run once its profiled window has closed."""
+
+
+def _profile_iterations(net, states, ms: int, stop_when_done: bool, iterations: int,
+                        phase: str) -> dict:
+    """A torch.profiler window over PROFILE_TICKS loop iterations from
+    iteration PROFILE_FROM of an event-driven run from `states` (a
+    second run of a configuration already timed in `iterations`
+    iterations, so the timed run stays unprofiled; a shorter run profiles
+    its last iterations); the run stops when the window closes.  Returns
+    the window's numbers per iteration."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    per = min(PROFILE_TICKS, iterations)
+    start = min(PROFILE_FROM, iterations - per)
+    step, done = net._step_jump, [0]
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+    def stepped(s, t, ends):
+        if done[0] == start:
+            torch.cuda.synchronize()
+            prof.__enter__()
+        out = step(s, t, ends)
+        done[0] += 1
+        if done[0] == start + per:
+            torch.cuda.synchronize()
+            prof.__exit__(None, None, None)
+            raise _WindowDone
+        return out
+
+    net._step_jump = stepped
+    try:
+        net.run_ms_batched(states, ms, stop_when_done)
+        raise AssertionError(f"{phase}: the run ended before iteration {start + per}")
+    except _WindowDone:
+        pass
+    finally:
+        del net._step_jump  # the class's method again
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kern:
+        raise AssertionError(f"{phase}: the profiler recorded no device activity")
+    ops = [e for e in prof.key_averages() if e.key.startswith("aten::")]
+    ops.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    return {
+        "phase": phase,
+        "window_iterations": [start, start + per],
+        "kernels_per_iteration": len(kern) / per,
+        "device_ms_per_iteration": sum(e.device_time for e in kern) / 1e3 / per,
+        "hand_kernels_per_iteration": device_ms_by_kernel(kern, per),
+        "top_ops": [
+            {"op": e.key, "calls_per_iteration": e.count / per,
+             "device_ms_per_iteration": e.self_device_time_total / 1e3 / per}
+            for e in ops[:12]
+        ],
+    }
+
+
+def casper_replica0(states) -> dict:
+    """Replica 0's outcome in the numbers the JAX package's seed-0 run
+    gives (CASPER_R0)."""
+    p = states.proto
+    heights = torch.nonzero(p["blk_exists"][0])[:, 0]
+    ov = states.ovf_valid[0]
+    live = torch.nonzero(ov)[:, 0]
+    return {
+        "heights": heights.tolist(),
+        "blk_parent": p["blk_parent"][0, heights].tolist(),
+        "blk_time": p["blk_time"][0, heights].tolist(),
+        "head_min": int(p["head"][0].min()), "head_max": int(p["head"][0].max()),
+        "msg_received": int(states.msg_received[0].sum()),
+        "msg_sent": int(states.msg_sent[0].sum()), "msg_head": int(states.msg_head[0]),
+        "att_exists": int(p["att_exists"][0].sum()), "rec_att": int(p["rec_att"][0].sum()),
+        "reeval": int(p["reeval"][0].sum()), "wf_on_time": int(p["wf_on_time"][0].sum()),
+        "wf_late": int(p["wf_late"][0].sum()), "overflow_live": int(ov.sum()),
+        "overflow_slots": [int(live.min()), int(live.max())] if live.numel() else [],
+        "overflow_types": torch.bincount(states.ovf_type[0][ov].long(), minlength=7).tolist(),
+        "overflow_arrival_sum": int(states.ovf_arrival[0][ov].long().sum()),
+    }
+
+
+def casper() -> dict:
+    """BASELINE config 4: make_casper(CasperParameters(cycle_length=4,
+    attesters_per_round=256, ...), max_heights=12) at 1027 nodes,
+    replicate_state(CASPER_REPLICAS), run_ms_batched(48000), once per
+    latency model of the sweep, each with a profiled window from
+    iteration PROFILE_FROM of a second run.  Its path launches no
+    hand-written kernel (the flat store reads no wheel occupancy)."""
+    out = {}
+    for model, kw in CASPER_MODELS.items():
+        t_build = time.perf_counter()
+        net, state = make_casper(CasperParameters(cycle_length=4, attesters_per_round=256, **kw),
+                                 max_heights=CASPER_HEIGHTS)
+        states = replicate_state(state, CASPER_REPLICAS)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t_build
+        states, wall, launches = _timed_run(net, states, CASPER_MS, False)
+        loop = _loop_numbers(net, CASPER_REPLICAS, wall, launches)
+        p = states.proto
+        exists = p["blk_exists"]
+        chain = (p["blk_parent"] == net.protocol.hr - 1) | ~exists
+        r0 = casper_replica0(states)
+        row = {"model": model, "nodes": net.n_nodes, "max_heights": CASPER_HEIGHTS,
+               "ms": CASPER_MS, "capacity": net.overflow_capacity, "build_s": build_s, **loop,
+               "blocks_per_replica_min": int(exists.sum(-1).min()) - 1,
+               "replica0": r0, "dropped": int(states.dropped.sum())}
+        emit({"phase": "casper", **row})
+        if row["dropped"]:
+            raise AssertionError(f"casper {model}: {row['dropped']} messages dropped")
+        if not (chain[:, 1:].all() and (exists.sum(-1) >= 5).all()):
+            raise AssertionError(f"casper {model}: a replica's chain is forked or short: "
+                                 f"{p['blk_parent'][~chain.all(-1)][:3].tolist()}")
+        if r0 != CASPER_R0:
+            raise AssertionError(f"casper {model}: replica 0 gives {r0}, the JAX package "
+                                 f"{CASPER_R0}")
+        window = _profile_iterations(net, replicate_state(state, CASPER_REPLICAS), CASPER_MS,
+                                     False, loop["iterations"], f"casper_{model}_profile")
+        window["device_busy_share"] = window["device_ms_per_iteration"] / loop["ms_per_iteration"]
+        row.update({k: window[k] for k in ("kernels_per_iteration", "device_ms_per_iteration",
+                                           "device_busy_share")})
+        emit(window)
+        out[model] = row
+    total = sum(r["wall_s"] for r in out.values())
+    emit({"phase": "casper_sweep", "wall_s": total,
+          "sims_per_s": {m: r["sims_per_s"] for m, r in out.items()}})
+    return {**out["distance"], "models": out}
+
+
+def paxos() -> dict:
+    """make_paxos(PaxosParameters()) on the 512-row wheel,
+    replicate_state(PAXOS_REPLICAS), run_ms_batched(5000,
+    stop_when_done=True): no replica's proposers accept two values or one
+    nobody proposed, every replica decides but the seeds the JAX package
+    leaves undecided (PAXOS_UNDECIDED), replica 0 gives the JAX package's
+    seed-0 run, nothing drops, and the occupancy kernels launch;
+    paxos_profile is a window from iteration PROFILE_FROM of a second run.
+    The run's numbers are printed before the checks fail."""
+    t_build = time.perf_counter()
+    net, state = make_paxos(PaxosParameters())
+    states = replicate_state(state, PAXOS_REPLICAS)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_build
+    states, wall, launches = _timed_run(net, states, PAXOS_MS, True)
+    loop = _loop_numbers(net, PAXOS_REPLICAS, wall, launches)
+    prop = net.protocol.prop_ids.long()
+    val = states.proto["value_accepted"][:, prop]
+    done = states.done_at[:, prop].cpu().numpy()
+    undecided = (val < 0).any(-1)
+    split = ~undecided & ((val != val[:, :1]).any(-1)
+                          | ~torch.isin(val[:, 0], net.protocol.value_proposed[prop]))
+    r0 = {"done_at": done[0].tolist(), "value": int(val[0, 0]),
+          "msg_received": int(states.msg_received[0].sum()),
+          "msg_sent": int(states.msg_sent[0].sum())}
+    fin = done[done > 0]
+    q = np.percentile(fin, [10, 50, 90]).tolist()
+    out = {"nodes": net.n_nodes, "ms": PAXOS_MS, "build_s": build_s, **loop,
+           "done_at_p10": q[0], "done_at_p50": q[1], "done_at_p90": q[2],
+           "done_at_max": int(fin.max()), "replica0": r0,
+           "undecided_seeds": torch.nonzero(undecided)[:, 0].tolist(),
+           "split_seeds": torch.nonzero(split)[:, 0].tolist(),
+           "dropped": int(states.dropped.sum())}
+    emit({"phase": "paxos", **out})
+    want = {"done_at": [487, 912, 226], "value": 95, "msg_received": 77, "msg_sent": 78}
+    if r0 != want:
+        raise AssertionError(f"paxos: replica 0 gives {r0}, the JAX package {want}")
+    if out["split_seeds"]:
+        raise AssertionError(f"paxos: replicas whose proposers accepted two values or an "
+                             f"unproposed one: {out['split_seeds'][:20]}")
+    expected = [seed for seed in PAXOS_UNDECIDED if seed < PAXOS_REPLICAS]
+    if out["undecided_seeds"] != expected:
+        raise AssertionError(f"paxos: undecided replicas {out['undecided_seeds'][:20]}, the JAX "
+                             f"package's {expected}")
+    if out["dropped"]:
+        raise AssertionError(f"paxos: {out['dropped']} messages dropped")
+    for name in ("pack_occupied", "lowest_set_bit", "popcount_words"):
+        if launches[name] <= 0:
+            raise AssertionError(f"paxos: {name} kernel never launched")
+    window = _profile_iterations(net, replicate_state(state, PAXOS_REPLICAS), PAXOS_MS, True,
+                                 loop["iterations"], "paxos_profile")
+    window["device_busy_share"] = window["device_ms_per_iteration"] / loop["ms_per_iteration"]
+    out.update({k: window[k] for k in ("kernels_per_iteration", "device_ms_per_iteration",
+                                       "device_busy_share")})
+    emit(window)
+    return out
+
+
 PHASES = ("kernels", "identity", "flagship", "byzantine", "pingpong", "dfinity", "gsf",
-          "p2phandel", "handeleth2", "sanfermin")
+          "p2phandel", "handeleth2", "sanfermin", "casper", "paxos")
 
 
 def main(argv) -> int:
@@ -1325,6 +1614,7 @@ def main(argv) -> int:
         rows = run_kernels()
         agg = aggregation_kernels(torch.Generator(device="cuda").manual_seed(2))
         eth2 = eth2_kernels(torch.Generator(device="cuda").manual_seed(3))
+        pax = paxos_kernels(torch.Generator().manual_seed(4))
     if want("identity"):
         identity()
     if want("flagship"):
@@ -1353,6 +1643,10 @@ def main(argv) -> int:
         runs["handeleth2"] = handeleth2()
     if want("sanfermin"):
         runs["sanfermin"] = sanfermin()
+    if want("casper"):
+        runs["casper"] = casper()
+    if want("paxos"):
+        runs["paxos"] = paxos()
     # every path's launches of every form, from that path's own run
     emit({"phase": "launches_by_path",
           **{path: out["launches"] for path, out in runs.items()}})
@@ -1365,6 +1659,8 @@ def main(argv) -> int:
             rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], agg["errs"][name])
         for name, err in eth2["errs"].items():
             rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+        for name, row in pax.items():
+            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], row["max_abs_err"])
         # launches: each kernel's count from the run of its path — the
         # popcount family from the flagship, lowest_set_bit_andnot from
         # the Byzantine run (the flagship runs no attack), lowest_set_bit
@@ -1378,8 +1674,8 @@ def main(argv) -> int:
         rows["pack_bool_words"]["launches"] = runs["p2phandel"]["launches"]["pack_bool_words"]
         keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms")
-        # beside the main path's count, each path's own (HandelEth2's and
-        # SanFermin's among them)
+        # beside the main path's count, each path's own (HandelEth2's,
+        # SanFermin's, Casper's — none — and Paxos's among them)
         emit({"kernels": [
             {**{k: r[k] for k in keys},
              "launches_by_path": {path: out["launches"][r["name"]] for path, out in runs.items()}}

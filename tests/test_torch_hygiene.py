@@ -19,6 +19,7 @@ import wittgenstein_tpu_torch
 from wittgenstein_tpu_torch.core.registries import registry_network_latencies
 from wittgenstein_tpu_torch.engine import BatchedNetwork, BatchedProtocol
 from wittgenstein_tpu_torch.protocols.handel import HandelParameters, flagship_params
+from wittgenstein_tpu_torch.protocols.casper_batched import make_casper
 from wittgenstein_tpu_torch.protocols.dfinity_batched import make_dfinity
 from wittgenstein_tpu_torch.protocols.gsf import GSFSignatureParameters
 from wittgenstein_tpu_torch.protocols.gsf_batched import make_gsf
@@ -27,6 +28,7 @@ from wittgenstein_tpu_torch.protocols.handeleth2_batched import make_handeleth2
 from wittgenstein_tpu_torch.protocols.handel_batched import BatchedHandel, make_handel
 from wittgenstein_tpu_torch.protocols.p2phandel import P2PHandelParameters
 from wittgenstein_tpu_torch.protocols.p2phandel_batched import make_p2phandel
+from wittgenstein_tpu_torch.protocols.paxos_batched import make_paxos
 from wittgenstein_tpu_torch.protocols.pingpong_batched import make_pingpong
 from wittgenstein_tpu_torch.protocols.sanfermin import SanFerminSignatureParameters
 from wittgenstein_tpu_torch.protocols.sanfermin_batched import make_sanfermin
@@ -88,7 +90,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         make_handel(params)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         BatchedNetwork(BatchedHandel(params), registry_network_latencies.get_by_name(None), 64)
-    for make in (make_pingpong, make_dfinity):
+    for make in (make_pingpong, make_dfinity, make_casper, make_paxos):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     # asking for the CPU is the one way to run without a card

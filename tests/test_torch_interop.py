@@ -6,13 +6,16 @@ words is each protocol's own `WORD_LEAVES`, found from the state's proto
 keys (`PROTO_KEYS`, declared by the protocols that carry words).  For every ported protocol the
 round trip must give back the JAX state exactly — name, dtype, shape and
 bits — including SanFermin's int32 `agg` (a word in Handel), HandelEth2's
-uint32 words and P2PHandel's bool `ver_sig` (a word in Handel and GSF).
+uint32 words, P2PHandel's bool `ver_sig` (a word in Handel and GSF), and
+CasperIMD's and Paxos's states, which hold no words.
 """
 
 import jax
 import numpy as np
 import pytest
 
+from wittgenstein_tpu.protocols.casper import CasperParameters
+from wittgenstein_tpu.protocols.casper_batched import make_casper as jcasper
 from wittgenstein_tpu.protocols.dfinity_batched import make_dfinity as jdfinity
 from wittgenstein_tpu.protocols.gsf import GSFSignatureParameters
 from wittgenstein_tpu.protocols.gsf_batched import make_gsf as jgsf
@@ -22,6 +25,7 @@ from wittgenstein_tpu.protocols.handeleth2 import HandelEth2Parameters
 from wittgenstein_tpu.protocols.handeleth2_batched import make_handeleth2 as jeth2
 from wittgenstein_tpu.protocols.p2phandel import P2PHandelParameters
 from wittgenstein_tpu.protocols.p2phandel_batched import make_p2phandel as jp2p
+from wittgenstein_tpu.protocols.paxos_batched import make_paxos as jpaxos
 from wittgenstein_tpu.protocols.pingpong_batched import make_pingpong as jpingpong
 from wittgenstein_tpu.protocols.sanfermin import SanFerminSignatureParameters
 from wittgenstein_tpu.protocols.sanfermin_batched import make_sanfermin as jsanfermin
@@ -52,6 +56,10 @@ BUILDS = {
                    {"fin_peers", "inc", "ind", "out", "c_atts", "v_atts"}),
     "sanfermin": (lambda: jsanfermin(SanFerminSignatureParameters(
         64, 64, 2, 48, 300, 1, False, None, None)), "BatchedSanFermin", {"pending"}),
+    # no words: protocol_of must identify neither as another protocol
+    "casper": (lambda: jcasper(CasperParameters(), max_heights=16, byz_variant="sf"), None,
+               set()),
+    "paxos": (jpaxos, None, set()),
 }
 
 
@@ -90,7 +98,7 @@ def test_every_ported_protocol_declares_its_state():
     identify its state, and no two protocols' keys identify the same
     state; a protocol without words declares no keys."""
     classes = ported_protocols()
-    assert len(classes) == 7
+    assert len(classes) == 9
     assert sum(bool(c.WORD_LEAVES) for c in classes) == 4  # Handel, GSF, HandelEth2, SanFermin
     for cls in classes:
         assert bool(cls.PROTO_KEYS) == bool(cls.WORD_LEAVES), cls.__name__

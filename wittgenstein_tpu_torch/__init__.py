@@ -12,7 +12,9 @@ Entry points (`protocols.handel_batched.make_handel`,
 `protocols.handeleth2_batched.make_handeleth2`,
 `protocols.sanfermin_batched.make_sanfermin`,
 `protocols.pingpong_batched.make_pingpong`,
-`protocols.dfinity_batched.make_dfinity`, `engine.core.BatchedNetwork`)
+`protocols.dfinity_batched.make_dfinity`,
+`protocols.casper_batched.make_casper`, `protocols.paxos_batched.make_paxos`,
+`engine.core.BatchedNetwork`)
 run on CUDA unless the caller passes `device="cpu"`; without a card they
 raise instead of falling back.  On a
 CUDA tensor every bitset op launches its kernel; on a CPU tensor it runs
@@ -21,14 +23,17 @@ the kernel's plain PyTorch version.
 Layout mirrors the JAX package so each module's counterpart is easy to
 find:
   utils/      JavaRandom, Pareto distribution, Java integer helpers
-  core/       node population, geometry, latency model, registries
+  core/       node populations (random and AWS-city builders), geometry,
+              latency models (distance + jitter, AWS regions, IC3),
+              registries
   engine/     SimState, BatchedNetwork (flat store and time wheel, lockstep
               and consensus-jump loops), counter RNG, narrow storage plans
   ops/        packed-bitset ops, their CUDA kernels (ops/csrc) and binding
   oracle/     the P2P overlay graph builder (host-side, no DES)
   protocols/  batched Handel and GSF on the bitset-aggregation base;
               P2PHandel, HandelEth2 and SanFermin, per-ms on the time
-              wheel; PingPong and Dfinity on the event-driven path
+              wheel; PingPong, Dfinity and Paxos on the event-driven
+              path; CasperIMD event-driven on the flat store
   interop.py  carry a JAX-package state into the port and back
 """
 

@@ -1,15 +1,66 @@
-"""Map geometry constants (reference: core geoinfo/Geo.java).
+"""Map geometry and the AWS-region city table (reference: core
+geoinfo/Geo.java, GeoAWS.java, CityInfo.java).
 
-Only what the default RANDOM node builder needs: the Mercator map bounds
-and the default city name.  City tables arrive with the city-based
-builders in a later slice.
+What the default RANDOM node builder and the AWS node builder need: the
+Mercator map bounds, the default city name, and the 11 AWS-region cities
+with their positions and cumulative sampling probabilities.  The
+all-cities table (GeoAllCities and its CSV) is not ported.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Dict, Tuple
 
 MAX_X = 2000
 MAX_Y = 1112
 MAX_DIST = int(math.sqrt((MAX_X / 2.0) ** 2 + (MAX_Y / 2.0) ** 2))
 DEFAULT_CITY = "world"
+
+
+@dataclasses.dataclass(frozen=True)
+class CityInfo:
+    merc_x: int
+    merc_y: int
+    cumulative_probability: float
+
+
+class Geo:
+    def cities_position(self) -> Dict[str, CityInfo]:
+        raise NotImplementedError
+
+    @staticmethod
+    def city_info_map(
+        cities: Dict[str, Tuple[int, int, int]], total_population: int
+    ) -> Dict[str, CityInfo]:
+        """cities: name -> (mercX, mercY, population).  The cumulative
+        probability accumulates in the dict's insertion order (Geo.java:11-19
+        iterates a HashMap; the JAX package fixes the order this way)."""
+        cum = 0.0
+        out: Dict[str, CityInfo] = {}
+        for name, (x, y, pop) in cities.items():
+            cum += pop * 1.0 / total_population
+            out[name] = CityInfo(x, y, cum)
+        return out
+
+
+class GeoAWS(Geo):
+    """Positions of the 11 AWS-region cities (GeoAWS.java:10-23)."""
+
+    CITY_POS: Dict[str, Tuple[int, int, int]] = {
+        "Oregon": (271, 261, 1),
+        "Virginia": (513, 316, 1),
+        "Mumbai": (1344, 426, 1),
+        "Seoul": (1641, 312, 1),
+        "Singapore": (1507, 532, 1),
+        "Sydney": (1773, 777, 1),
+        "Tokyo": (1708, 316, 1),
+        "Canada central": (422, 256, 1),
+        "Frankfurt": (985, 226, 1),
+        "Ireland": (891, 200, 1),
+        "London": (937, 205, 1),
+    }
+
+    def cities_position(self) -> Dict[str, CityInfo]:
+        return self.city_info_map(self.CITY_POS, len(self.CITY_POS))

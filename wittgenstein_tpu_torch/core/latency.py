@@ -1,11 +1,13 @@
-"""The default network latency model, vectorized over the replica axis.
+"""Network latency models, vectorized over the replica axis.
 
-Reference semantics: core NetworkLatency.java.  The port keeps only what
-the default model needs: `NetworkLatencyByDistanceWJitter` with its
-exact host table, the shared `vec_latency` wrapper
-(NetworkLatency.getLatency, NetworkLatency.java:27-34) and the toroidal
-distance with its integer-sqrt snap.  All randomness is externalized into
-`delta` in [0, 99], which the engine draws from its counter RNG.
+Reference semantics: core NetworkLatency.java.  The port keeps three
+models: the default `NetworkLatencyByDistanceWJitter` with its exact
+host table, `AwsRegionNetworkLatency` (the AWS-region ping matrix) and
+`IC3NetworkLatency` (area quantiles of the distance), with the shared
+`vec_latency` wrapper (NetworkLatency.getLatency,
+NetworkLatency.java:27-34) and the toroidal distance with its
+integer-sqrt snap.  All randomness is externalized into `delta` in
+[0, 99], which the engine draws from its counter RNG.
 
 Every column is [R, N] and every index array [R, ...]: the replica axis
 is explicit (see ops/indexing.py).
@@ -13,16 +15,30 @@ is explicit (see ops/indexing.py).
 
 from __future__ import annotations
 
+import math
+from typing import Dict
+
 import numpy as np
 import torch
 
 from ..ops.indexing import take
 from ..utils.gpd import GeneralizedParetoDistribution
+from ..utils.javaops import jint
 from .geo import MAX_DIST, MAX_X, MAX_Y
 
 _WAN_GPD = GeneralizedParetoDistribution(1.4, -0.3, 0.35)
 # delta only ever takes 100 values: precompute the jitter table once.
 JITTER_TABLE = np.array([_WAN_GPD.inverse_f(d / 100.0) for d in range(100)])
+
+_ON_DEVICE: dict = {}
+
+
+def _on_device(key: str, host: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A model's host table as a flat tensor, uploaded once per device."""
+    k = (key, str(device))
+    if k not in _ON_DEVICE:
+        _ON_DEVICE[k] = torch.from_numpy(np.ascontiguousarray(host).reshape(-1)).to(device)
+    return _ON_DEVICE[k]
 
 
 class NetworkLatency:
@@ -81,7 +97,6 @@ class NetworkLatencyByDistanceWJitter(NetworkLatency):
     # the host; the kernel is a single gather, bit-exact with the scalar
     # path.
     _TABLE = None
-    _ON_DEVICE: dict = {}
 
     @classmethod
     def _table(cls) -> np.ndarray:
@@ -92,15 +107,110 @@ class NetworkLatencyByDistanceWJitter(NetworkLatency):
             cls._TABLE = (raw / 2).astype(np.int32)  # trunc toward zero (>0)
         return cls._TABLE
 
-    @classmethod
-    def _table_on(cls, device: torch.device) -> torch.Tensor:
-        """The flattened table, uploaded once per device."""
-        key = str(device)
-        if key not in cls._ON_DEVICE:
-            cls._ON_DEVICE[key] = torch.from_numpy(cls._table().reshape(-1)).to(device)
-        return cls._ON_DEVICE[key]
-
     def ext_vec(self, static, from_idx, to_idx, delta):
-        table = self._table_on(static.x.device)
+        table = _on_device("distance_jitter", self._table(), static.x.device)
         dist = _dist_vec(static, from_idx, to_idx)
         return table[(dist * 100 + delta).to(torch.int64)]
+
+
+AWS_REGION_PER_CITY: Dict[str, int] = {
+    "Oregon": 0,
+    "Virginia": 1,
+    "Mumbai": 2,
+    "Seoul": 3,
+    "Singapore": 4,
+    "Sydney": 5,
+    "Tokyo": 6,
+    "Canada central": 7,
+    "Frankfurt": 8,
+    "Ireland": 9,
+    "London": 10,
+}
+
+# upper-triangular ping matrix, ms round trip (NetworkLatency.java:112-128)
+_AWS_PINGS = np.array(
+    [
+        [0, 81, 216, 126, 165, 138, 97, 64, 164, 131, 141],
+        [0, 0, 182, 181, 232, 195, 167, 13, 88, 80, 75],
+        [0, 0, 0, 152, 62, 223, 123, 194, 111, 122, 113],
+        [0, 0, 0, 0, 97, 133, 35, 184, 259, 254, 264],
+        [0, 0, 0, 0, 0, 169, 69, 218, 162, 174, 171],
+        [0, 0, 0, 0, 0, 0, 105, 210, 282, 269, 271],
+        [0, 0, 0, 0, 0, 0, 0, 156, 235, 222, 234],
+        [0, 0, 0, 0, 0, 0, 0, 0, 101, 78, 87],
+        [0, 0, 0, 0, 0, 0, 0, 0, 0, 24, 13],
+        [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 12],
+        [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+    ],
+    dtype=np.int32,
+)
+
+
+class AwsRegionNetworkLatency(NetworkLatency):
+    """One-way latency between AWS regions: half the ping, plus the WAN
+    jitter truncated to an int, at least 1; 1 within a region
+    (NetworkLatency.java:100-160).
+
+    The vectorized form reads each node's region from `city_idx`.  The
+    JAX package's builders fill that column only for a model with a
+    `city_index`, which this one lacks, so on the batched path every node
+    holds -1, every pair compares equal, and every latency is 1 ms.  The
+    port reproduces that: -1 wraps to the last region as JAX's indexing
+    does, and the `r1 == r2` branch then answers 1."""
+
+    # symmetric one-way base: ping // 2 (diagonal 0, same region apart)
+    ONEWAY = np.maximum(_AWS_PINGS, _AWS_PINGS.T) // 2
+    # the jitter as the JAX form adds it: float32, truncated toward zero
+    JITTER_I32 = JITTER_TABLE.astype(np.float32).astype(np.int32)
+
+    @staticmethod
+    def cities():
+        return sorted(AWS_REGION_PER_CITY)
+
+    def ext_vec(self, static, from_idx, to_idx, delta):
+        dev = static.x.device
+        m = _on_device("aws_oneway", self.ONEWAY, dev)
+        jit = _on_device("aws_jitter", self.JITTER_I32, dev)
+        regions = self.ONEWAY.shape[0]
+        # floor modulo: JAX's wrap of a negative index, never a negative
+        # index on the device
+        r1 = torch.remainder(take(static.city_idx, from_idx), regions).to(torch.int64)
+        r2 = torch.remainder(take(static.city_idx, to_idx), regions).to(torch.int64)
+        lat = torch.clamp(m[r1 * regions + r2] + jit[delta.to(torch.int64)], min=1)
+        return torch.where(r1 == r2, 1, lat)
+
+
+class IC3NetworkLatency(NetworkLatency):
+    """Half the round trip of the distance's area quantile
+    (NetworkLatency.java:374-410): the share of the map inside the disc of
+    the distance picks one of six IC3 measurements."""
+
+    S10 = 92
+    SW = 350
+    _TABLE = None
+
+    @classmethod
+    def _table(cls) -> np.ndarray:
+        """The exact per-distance table, computed in float64 on the host."""
+        if cls._TABLE is None:
+            out = np.empty(MAX_DIST + 1, dtype=np.int32)
+            for dist in range(MAX_DIST + 1):
+                position = jint((float(dist) * dist * math.pi * 100) / (MAX_X * MAX_Y))
+                if position <= 10:
+                    out[dist] = cls.S10 // 2
+                elif position <= 33:
+                    out[dist] = 125 // 2
+                elif position <= 50:
+                    out[dist] = 152 // 2
+                elif position <= 67:
+                    out[dist] = 200 // 2
+                elif position <= 90:
+                    out[dist] = 276 // 2
+                else:
+                    out[dist] = cls.SW // 2
+            cls._TABLE = out
+        return cls._TABLE
+
+    def ext_vec(self, static, from_idx, to_idx, delta):
+        table = _on_device("ic3", self._table(), static.x.device)
+        return table[_dist_vec(static, from_idx, to_idx).to(torch.int64)]

@@ -1,24 +1,26 @@
-"""Node identity and the default node builder.
+"""Node identity and the node builders.
 
 Reference semantics: core Node.java (identity, position) and
-NodeBuilder.java (id allocation, random positions).  Only what the
-default builder, `builder_name("RANDOM", True, 0.0)`, needs: it carries
-no aspects, so a node draws exactly one `rd.next_int()` (its position)
-and keeps speed ratio 1.0 and extra latency 0 — the same JavaRandom
-stream, draw for draw, as the JAX package's builder.
+NodeBuilder.java (id allocation, random positions, weighted city
+choice).  What the default builder, `builder_name("RANDOM", True, 0.0)`,
+and the AWS builder, `builder_name("AWS", True, 0.0)`, need: neither
+carries aspects, so a node draws exactly one `rd.next_int()` (its
+position, or its city and the city's position) and keeps speed ratio 1.0
+and extra latency 0 — the same JavaRandom stream, draw for draw, as the
+JAX package's builders.
 `build_node_columns` turns the population into the struct-of-arrays
 columns the batched engine reads.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 
-from ..utils.javaops import lshift32
+from ..utils.javaops import i32, java_abs, java_mod, lshift32
 from ..utils.javarand import JavaRandom
-from .geo import DEFAULT_CITY, MAX_X, MAX_Y
+from .geo import DEFAULT_CITY, MAX_X, MAX_Y, CityInfo, Geo
 
 
 class Node:
@@ -82,6 +84,40 @@ class NodeBuilderWithRandomPosition(NodeBuilder):
     def get_y(self, rd_int: int) -> int:
         r = abs(lshift32(rd_int, 16))
         return r % MAX_Y + 1
+
+
+class NodeBuilderWithCity(NodeBuilder):
+    """Weighted-random city choice (NodeBuilder.java:98-148): the city
+    from one random int against the cumulative probabilities, the
+    position from the city."""
+
+    def __init__(self, cities: List[str], geo: Geo):
+        super().__init__()
+        self.cities = [c.upper() for c in cities]
+        wanted = set(self.cities)
+        self.cities_info: Dict[str, CityInfo] = {
+            k: v for k, v in geo.cities_position().items() if k.upper() in wanted
+        }
+
+    def get_city_name(self, rd_int: int) -> str:
+        name = self._random_city(rd_int)
+        if name is None:
+            raise ValueError("no city matched")
+        return name
+
+    def _random_city(self, rd_int: int) -> Optional[str]:
+        size = len(self.cities)
+        p = java_mod(java_abs(i32(rd_int)), size) / size
+        for name, info in self.cities_info.items():
+            if p <= info.cumulative_probability:
+                return name
+        return None
+
+    def get_x(self, rd_int: int) -> int:
+        return self.cities_info[self.get_city_name(rd_int)].merc_x
+
+    def get_y(self, rd_int: int) -> int:
+        return self.cities_info[self.get_city_name(rd_int)].merc_y
 
 
 def build_node_columns(nodes: List[Node], city_index: Dict[str, int] | None = None):

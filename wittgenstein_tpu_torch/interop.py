@@ -26,16 +26,18 @@ from .engine.core import SimState
 def ported_protocols() -> tuple:
     """The port's batched protocol classes (imported here, not at module
     load: they import the engine, as this module does)."""
+    from .protocols.casper_batched import BatchedCasper
     from .protocols.dfinity_batched import BatchedDfinity
     from .protocols.gsf_batched import BatchedGSF
     from .protocols.handel_batched import BatchedHandel
     from .protocols.handeleth2_batched import BatchedHandelEth2
     from .protocols.p2phandel_batched import BatchedP2PHandel
+    from .protocols.paxos_batched import BatchedPaxos
     from .protocols.pingpong_batched import BatchedPingPong
     from .protocols.sanfermin_batched import BatchedSanFermin
 
     return (BatchedHandel, BatchedGSF, BatchedP2PHandel, BatchedPingPong, BatchedDfinity,
-            BatchedHandelEth2, BatchedSanFermin)
+            BatchedHandelEth2, BatchedSanFermin, BatchedCasper, BatchedPaxos)
 
 
 def protocol_of(proto_keys):
