@@ -37,8 +37,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 occupancy forms at Paxos's wheel, R = 8192:
                 pack_occupied on [R, 512] int32 fills, lowest_set_bit and
                 popcount_words on the packed [R, 16] words
-  4. identity   the port on the CPU (plain versions, run in worker
-                processes meanwhile) and on CUDA (kernels) give identical
+  4. identity   the port on the CPU (plain versions) and on CUDA
+                (kernels), each side in worker processes (four on the
+                CPU, four on the card, all at once), give identical
                 state in every leaf: batched Handel at 64
                 nodes x 2 replicas x 300 ms, flagship-shaped and with
                 byzantine_suicide; PingPong at 64 nodes x 2 x 300 ms;
@@ -48,16 +49,23 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 CasperIMD at its defaults (83 nodes, max_heights 16) x 2 x
                 40000 ms with the "wf" and "sf" producers and under the AWS
                 and IC3 models; Paxos x 2 x 5000 ms with 3 and with 5
-                acceptors
+                acceptors; Slush and Snowflake (100 nodes) x 2 x 4000 ms;
+                P2PFlood (100 nodes, 3 floods) x 2 x 2001 ms;
+                OptimisticP2PSignature (64 nodes, threshold 56, 10
+                connections) x 2 x 1500 ms; SanFerminCappos (64 nodes,
+                threshold 32, 4 candidates) x 2 x 1500 ms
   5. flagship   the Handel main path: make_handel(flagship_params(4096)),
                 replicate_state(R=16), run_ms_batched in 20-ms chunks up to
                 1000 ms with stop_when_done; every live node must finish and
                 popcount_words, popcount_binop and cand_score must have
                 launched in this run
-  6. profile    a 10-tick torch.profiler window of the flagship (after 100
-                warm ticks): kernels and device time per tick, the device's
-                busy share of a tick, the ops that take the device time and
-                each hand-written kernel's device time by name
+  6. profile    ticks 100-109 of the flagship run in a torch.profiler
+                window: kernels and device time per tick,
+                the device's busy share of a tick, the ops that take the
+                device time and each hand-written kernel's device time by
+                name, and the profiler's own seconds.  Every profile window
+                below sits inside its run, and its ticks or iterations are
+                left out of the run's wall time
   7. byzantine  4096 nodes, 1024 down, byzantine_suicide, R=4, 100 ms;
                 lowest_set_bit_andnot must have launched in this run; then
                 lowest_set_bit and lowest_set_bit_andnot are timed on the
@@ -67,19 +75,20 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 the consensus-jump loop; every witness must count 1000
                 pongs, nothing may drop, and pack_occupied, lowest_set_bit
                 and popcount_words must have launched in this run
-  9. pp_profile a torch.profiler window of 20 ms of the PingPong run, with
-                pack_occupied's device time
+  9. pp_profile a 20-iteration window from iteration 100 of the PingPong
+                run, with pack_occupied's device time
  10. dfinity    make_dfinity(max_heights=64), R=1024, 15000 ms: nothing may
                 drop, every replica's head height (its highest notarized
                 block) reaches 4, and pack_occupied must have launched
  11. gsf        GSF at 2048 nodes (BASELINE config 2), R = 32, 1000 ms in
                 20-ms chunks with stop_when_done: every node must finish,
                 and the popcount family and lowest_set_bit must launch;
-                then gsf_profile, a 10-tick torch.profiler window
- 12. p2phandel  P2PHandel at the reference defaults, R = 1024, up to
-                10000 ms with stop_when_done on the 512-row wheel: every
-                node must finish, nothing may drop, pack_bool_words must
-                launch; then p2p_profile, a 20-tick torch.profiler window
+                gsf_profile is ticks 100-109 of its run
+ 12. p2phandel  P2PHandel at the reference defaults, R = 1024, 3000 ms on
+                the 512-row wheel (cut from running to done, 6957 ticks):
+                nothing may drop, replica 0 must give the JAX package's
+                seed-0 counters at 3000 ms (P2P_R0), pack_bool_words must
+                launch; p2p_profile is a 20-tick window at ticks 100-119
  13. handeleth2 HandelEth2 at 256 nodes, R = 64, 2000 ms on the 512-row
                 wheel (the height-1001 process completes every level by
                 1000 ms): nothing may drop, every node of every replica
@@ -89,7 +98,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 a 20-tick torch.profiler window over ticks 1000-1019 (the
                 beat tick 1001 among them) inside the run
  14. sanfermin  SanFermin at 4096 nodes (BASELINE config 5 with Dfinity),
-                capacity 1 << 16, R = 1024, 3000 ms: nothing may drop, and
+                capacity 1 << 16, R = 1024, 2200 ms (cut from 3000): nothing may drop, and
                 replica 0 must give the JAX package's seed-0 result (4078
                 nodes done, thr_at P10/P50/P90 1044/1260/1580, min 815, max
                 2109, 156424 received, 91655 requests); sf_profile is a
@@ -105,8 +114,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 nothing may drop, every replica's chain is linear with 5
                 blocks or more, and replica 0 must give the JAX package's
                 seed-0 outcome (CASPER_R0) under each model; each model's
-                casper_*_profile is a 20-iteration window from iteration
-                100 of a second run.  Its path calls no hand-written kernel
+                casper_*_profile is its CASPER_WINDOWS window (iterations
+                100-119 of distance's 2131, 11-20 of AWS's 21, 61-80 of
+                IC3's 81).  Its path calls no hand-written kernel
  16. paxos      Paxos (3 acceptors, 3 proposers), R = 8192, 5000 ms with
                 stop_when_done on the 512-row wheel (cut from 16384,
                 71.6 s on an H100 at 700 W): no replica's proposers may accept two values,
@@ -115,9 +125,40 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 replica 0 must give the JAX package's seed-0 run (done_at
                 487/912/226, value 95, 77 received, 78 sent), and
                 pack_occupied, lowest_set_bit and popcount_words must
-                launch; paxos_profile is a 20-iteration window
- 17. launches_by_path  each path's launch count of every form
- 18. kernels    one line listing every ported kernel with its numbers
+                launch; paxos_profile is a 20-iteration window from
+                iteration 100
+ 17. slush      Slush at the reference main (100 nodes, M 5, K 7, alpha
+                4/7), R = 4096, 4000 ms with stop_when_done on the 512-row
+                wheel: every node of every replica colored and none
+                querying, nothing dropped, replica 0 equal to the JAX
+                package's seed-0 run (AV_R0), and pack_occupied,
+                lowest_set_bit and popcount_words launched in this run;
+                slush_profile is a 20-iteration torch.profiler window from
+                iteration 100 inside the run
+ 18. snowflake  the same for Snowflake (B = 3) and snowflake_profile
+ 19. p2pflood   P2PFlood at the reference defaults (100 nodes, 10 dead, 10
+                peers), R = 1024, 5000 ms with stop_when_done on the flat
+                store (capacity 1 << 13): every live node reached, nothing
+                dropped, replica 0 equal to the JAX package's seed-0 run
+                (FLOOD_R0); p2pflood_profile inside the run.  No
+                hand-written kernel on its path
+ 20. optimistic OptimisticP2PSignature at the reference's 1000 nodes
+                (threshold 501, 13 connections, pairing time 3), R = 16,
+                1500 ms with stop_when_done on the flat store at capacity
+                1 << 23 (134M slots; 1 << 22 drops): every node of every
+                replica done, nothing dropped, replica 0 equal to the JAX
+                package's seed-0 run (OPT_R0); optimistic_profile inside
+                the run.  No hand-written kernel on its path
+ 21. cappos     SanFerminCappos at 1024 nodes (threshold 512, 50
+                candidates), R = 64, 1000 ms on the 512-row wheel at
+                capacity 1 << 20 (4096 slots a row; 1 << 19 drops), a fixed
+                depth since six nodes never finish: nothing dropped,
+                replica 0 equal to the JAX package's seed-0 run
+                (CAPPOS_R0); cappos_profile is a 20-tick window over ticks
+                300-319 inside the run.  No hand-written kernel on its path
+ 22. phase_seconds  each phase's wall seconds (profiles and checks included)
+ 23. launches_by_path  each path's launch count of every form
+ 24. kernels    one line listing every ported kernel with its numbers
 
 The last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -154,6 +195,17 @@ from wittgenstein_tpu_torch.protocols.paxos_batched import make_paxos
 from wittgenstein_tpu_torch.protocols.pingpong_batched import make_pingpong
 from wittgenstein_tpu_torch.protocols.sanfermin import SanFerminSignatureParameters
 from wittgenstein_tpu_torch.protocols.sanfermin_batched import make_sanfermin
+from wittgenstein_tpu_torch.protocols.avalanche_batched import make_slush, make_snowflake
+from wittgenstein_tpu_torch.protocols.optimistic_p2p_signature import (
+    OptimisticP2PSignatureParameters,
+)
+from wittgenstein_tpu_torch.protocols.optimistic_p2p_signature_batched import make_optimistic
+from wittgenstein_tpu_torch.protocols.p2pflood import P2PFloodParameters
+from wittgenstein_tpu_torch.protocols.p2pflood_batched import make_p2pflood
+from wittgenstein_tpu_torch.protocols.sanfermin_cappos import SanFerminParameters
+from wittgenstein_tpu_torch.protocols.sanfermin_cappos_batched import make_sanfermin_cappos
+from wittgenstein_tpu_torch.protocols.slush import SlushParameters
+from wittgenstein_tpu_torch.protocols.snowflake import SnowflakeParameters
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak (NVIDIA data sheet, at 700 W)
 INT_OPS_PER_S = 67e12  # 32-bit rate outside the tensor cores (same sheet's fp32)
@@ -174,15 +226,31 @@ DF_MS = 15000
 GSF_NODES = 2048
 GSF_REPLICAS = 32
 P2P_REPLICAS = 1024
-P2P_MS = 10000
+# a fixed depth, cut from running to done (6957 ticks, 144 s at 20.74 ms a
+# tick on an H100 80GB HBM3 at 700 W, when the script ran 836-956 s) to
+# make room for the Slush, Snowflake, P2PFlood, OptimisticP2PSignature and
+# SanFerminCappos runs; replica 0 is held to the JAX package's seed-0
+# counters at this depth (P2P_R0), where no node is done yet
+P2P_MS = 3000
+P2P_R0 = {"msg_received": 332, "msg_sent": 332, "done": 0, "verified": 787, "ver_card": 787,
+          "ver_sig": 343, "peers_state": 1392, "ver_done_t": 202486, "last_check": 181686}
 ETH2_NODES = 256
 ETH2_REPLICAS = 64
 ETH2_MS = 2000
 SF_NODES = 4096
 SF_REPLICAS = 1024
-SF_MS = 3000
+# cut from 3000 ms (3000 ticks at 30.82 ms, 92 s, on an H100 80GB HBM3 at
+# 700 W, when the script ran 836-956 s) to make room for this slice's
+# runs; replica 0's numbers are the same at 2200 ms as at 3000 (its last
+# node reaches the threshold at 2109 ms) in the JAX package's seed-0 run
+SF_MS = 2200
 SF_CAPACITY = 1 << 16
 PROFILE_TICKS = 20
+# the flagship's and GSF's windows stay at the 10 ticks they had as second
+# runs: at 20 ticks inside the run the two phases took 52 s and 37 s
+# beyond their runs on an H100 80GB HBM3 at 700 W (most of it the
+# profiler's own processing), when the script ran 838 s
+LOCKSTEP_PROFILE_TICKS = 10
 PROFILE_FROM = 100  # the event-driven runs' profiled window starts here
 # BASELINE config 4: CasperIMD with 1024 attesters (1027 nodes), 6 slots,
 # under the three latency models of its sweep
@@ -195,6 +263,10 @@ CASPER_MODELS = {
                 network_latency_name="AwsRegionNetworkLatency"),
     "ic3": dict(network_latency_name="IC3NetworkLatency"),
 }
+# each model's profiled window (first iteration, iterations) inside its
+# run: the AWS run takes 21 iterations and the IC3 run 81, fewer than
+# PROFILE_FROM + PROFILE_TICKS
+CASPER_WINDOWS = {"distance": (PROFILE_FROM, PROFILE_TICKS), "aws": (11, 10), "ic3": (61, 20)}
 # the JAX package's seed-0 run of config 4, the same under every model:
 # a linear chain of 5 blocks, and the re-arming timers live at the end
 CASPER_R0 = {"heights": [0, 1, 2, 3, 4, 5], "blk_parent": [-1, 0, 1, 2, 3, 4],
@@ -214,6 +286,49 @@ PAXOS_UNDECIDED = (15639, 16118)
 # the JAX package's P2PHandel test parameters (small), for the identity
 P2P_SMALL = dict(signing_node_count=64, relaying_node_count=8, threshold=60,
                  connection_count=12, pairing_time=20, sigs_send_period=200)
+# Slush and Snowflake at the reference mains (slush.py, snowflake.py), on
+# the 512-row wheel at the default capacity, run to quiescence
+AV_REPLICAS = 4096
+AV_MS = 4000
+AV_PATHS = {
+    "slush": (make_slush, lambda: SlushParameters(100, 5, 7, 4.0 / 7.0)),
+    "snowflake": (make_snowflake, lambda: SnowflakeParameters(100, 5, 7, 4.0 / 7.0, 3)),
+}
+# replica 0 of the JAX package's seed-0 runs: every node red
+AV_R0 = {
+    "slush": {"color": 100, "iter": 500, "nonce": 598, "msg_received": 8400, "msg_sent": 8400},
+    "snowflake": {"color": 100, "iter": 400, "nonce": 458, "msg_received": 6440,
+                  "msg_sent": 6440},
+}
+# P2PFlood at the reference defaults (100 nodes, 10 dead, 10 peers), flat
+FLOOD_REPLICAS = 1024
+FLOOD_MS = 5000
+FLOOD_CAPACITY = 1 << 13
+# the JAX package's seed-0 run with stop_when_done: it stops at the last
+# live node's done tick, 827, with 447 of the 1013 floods received
+FLOOD_R0 = {"done": 90, "done_at_p10_p50_p90": [332.0, 547.5, 736.1], "done_at_max": 827,
+            "msg_received": 447, "msg_sent": 1013}
+# OptimisticP2PSignature at the reference's 1000 nodes (its main), flat;
+# about 6 million sends a replica by 300 ms: 1 << 22 slots drop 11% of them.
+# The JAX package's seed-0 run stops at tick 228 (the last node done at
+# 234 = 228 + 2 * pairing time) with 2760055 sends still in flight
+OPT_REPLICAS = 16
+OPT_MS = 1500
+OPT_CAPACITY = 1 << 23
+OPT_R0 = {"done": 1000, "done_at_p10_p50_p90": [162.0, 176.0, 193.0], "done_at_min": 151,
+          "done_at_max": 234, "received_bits": 508744, "msg_received": 3346693,
+          "msg_sent": 6106748, "pending": 2760055}
+# SanFerminCappos at 1024 nodes (sigs_per_time), on the 512-row wheel with
+# 4096 slots a row (1 << 19 drops); six nodes never finish, so the run
+# has a fixed depth, by which it has settled
+CAPPOS_REPLICAS = 64
+CAPPOS_MS = 1000
+CAPPOS_CAPACITY = 1 << 20
+CAPPOS_PROFILE_AT = 300
+CAPPOS_R0 = {"done": 1018, "not_done": [311, 390, 534, 674, 841, 890],
+             "done_at_p10_p50_p90": [323.0, 334.0, 346.0], "done_at_min": 313,
+             "done_at_max": 358, "thr_done": 1018, "thr_at_p10_p50_p90": [308.0, 320.0, 332.0],
+             "msg_received": 402698, "msg_sent": 402698, "cpl": 47}
 
 
 def emit(obj) -> None:
@@ -912,32 +1027,43 @@ def _leaf_diff(a: dict, b: dict) -> list:
     return bad
 
 
-# identity cases: (build on a device, ms, chunk); each runs 2 replicas
+# identity cases: (build on a device, ms, chunk); each runs 2 replicas.
+# Longest first (their CUDA sides took 15-23 s each on an H100 80GB HBM3
+# at 700 W), so that the worker pools finish together
 IDENTITY = {
+    "sanfermin": (lambda dev: make_sanfermin(sf_params(64), device=dev), 1500, 500),
+    "cappos": (lambda dev: make_sanfermin_cappos(SanFerminParameters(64, 32, 2, 48, 150, 4),
+                                                 device=dev), 1500, 500),
+    "snowflake": (lambda dev: make_snowflake(AV_PATHS["snowflake"][1](), device=dev),
+                  4000, 4000),
+    "slush": (lambda dev: make_slush(AV_PATHS["slush"][1](), device=dev), 4000, 4000),
     "flagship_shaped": (lambda dev: make_handel(flagship_params(64), score_cache=True,
                                                 device=dev), 300, 100),
+    "dfinity": (lambda dev: make_dfinity(device=dev), 7000, 7000),
+    "p2phandel": (lambda dev: make_p2phandel(P2PHandelParameters(**P2P_SMALL), device=dev),
+                  1500, 500),
+    "casper_wf": (lambda dev: make_casper(max_heights=16, device=dev), 40000, 40000),
     "byzantine_suicide": (lambda dev: make_handel(HandelParameters(
         node_count=64, nodes_down=16, threshold=47, byzantine_suicide=True),
         score_cache=True, device=dev), 300, 100),
-    "pingpong": (lambda dev: make_pingpong(64, device=dev), 300, 300),
-    "dfinity": (lambda dev: make_dfinity(device=dev), 7000, 7000),
-    "gsf": (lambda dev: make_gsf(GSFSignatureParameters(node_count=256, threshold=253),
-                                 device=dev), 300, 100),
-    "p2phandel": (lambda dev: make_p2phandel(P2PHandelParameters(**P2P_SMALL), device=dev),
-                  1500, 500),
-    "handeleth2": (lambda dev: make_handeleth2(HandelEth2Parameters(node_count=32),
-                                               device=dev), 700, 350),
-    "sanfermin": (lambda dev: make_sanfermin(sf_params(64), device=dev), 1500, 500),
-    "casper_wf": (lambda dev: make_casper(max_heights=16, device=dev), 40000, 40000),
     "casper_sf": (lambda dev: make_casper(max_heights=16, byz_variant="sf", device=dev),
                   40000, 40000),
-    "casper_aws": (lambda dev: make_casper(CasperParameters(**CASPER_MODELS["aws"]),
-                                           max_heights=16, device=dev), 40000, 40000),
-    "casper_ic3": (lambda dev: make_casper(CasperParameters(**CASPER_MODELS["ic3"]),
-                                           max_heights=16, device=dev), 40000, 40000),
+    "gsf": (lambda dev: make_gsf(GSFSignatureParameters(node_count=256, threshold=253),
+                                 device=dev), 300, 100),
+    "handeleth2": (lambda dev: make_handeleth2(HandelEth2Parameters(node_count=32),
+                                               device=dev), 700, 350),
+    "p2pflood": (lambda dev: make_p2pflood(P2PFloodParameters(msg_count=3), device=dev),
+                 2001, 2001),
+    "optimistic": (lambda dev: make_optimistic(OptimisticP2PSignatureParameters(64, 56, 10, 1),
+                                               device=dev), 1500, 1500),
     "paxos": (lambda dev: make_paxos(device=dev), 5000, 5000),
     "paxos_5_3": (lambda dev: make_paxos(PaxosParameters(acceptor_count=5), device=dev),
                   5000, 5000),
+    "casper_ic3": (lambda dev: make_casper(CasperParameters(**CASPER_MODELS["ic3"]),
+                                           max_heights=16, device=dev), 40000, 40000),
+    "pingpong": (lambda dev: make_pingpong(64, device=dev), 300, 300),
+    "casper_aws": (lambda dev: make_casper(CasperParameters(**CASPER_MODELS["aws"]),
+                                           max_heights=16, device=dev), 40000, 40000),
 }
 
 
@@ -960,15 +1086,19 @@ def _one_thread() -> None:
 
 def identity() -> None:
     """Each IDENTITY case gives identical state in every leaf on the CPU
-    (plain versions) and on CUDA (kernels).  The CPU sides run in worker
-    processes while this one runs the CUDA sides; every worker is joined
-    or terminated when the phase ends."""
+    (plain versions) and on CUDA (kernels).  Both sides of every case run
+    in worker processes, four on the CPU and four on the card, all
+    started together (each side's host loop holds one core; the card
+    serves the four in turn); every worker is joined or terminated when
+    the phase ends.  `ready_s` is when both sides of a case were in."""
     ctx = multiprocessing.get_context("spawn")
-    with ctx.Pool(4, initializer=_one_thread) as pool:
-        cpu = {case: pool.apply_async(identity_state, (case, "cpu")) for case in IDENTITY}
+    t0 = time.perf_counter()
+    with ctx.Pool(4, initializer=_one_thread) as cpu_pool, \
+            ctx.Pool(4, initializer=_one_thread) as cuda_pool:
+        cpu = {case: cpu_pool.apply_async(identity_state, (case, "cpu")) for case in IDENTITY}
+        cuda = {case: cuda_pool.apply_async(identity_state, (case, "cuda")) for case in IDENTITY}
         for case, (_, ms, _) in IDENTITY.items():
-            t0 = time.perf_counter()
-            out = identity_state(case, "cuda")
+            out = cuda[case].get()
             bad = _leaf_diff(cpu[case].get(), out)
             if bad:
                 raise AssertionError(f"identity {case}: CPU and CUDA differ in {bad[:10]}")
@@ -977,9 +1107,10 @@ def identity() -> None:
                   "done_nodes": int((out["done_at"] > 0).sum()),
                   "dropped": int(out["dropped"].sum()),
                   "overflow_live": out["ovf_valid"].sum(-1).tolist(),
-                  "seconds": time.perf_counter() - t0})
-        pool.close()
-        pool.join()
+                  "ready_s": time.perf_counter() - t0})
+        for pool in (cpu_pool, cuda_pool):
+            pool.close()
+            pool.join()
 
 
 def _quantiles(done: np.ndarray, down: np.ndarray) -> dict:
@@ -990,10 +1121,14 @@ def _quantiles(done: np.ndarray, down: np.ndarray) -> dict:
             "done_at_p10": q[0], "done_at_p50": q[1], "done_at_p90": q[2]}
 
 
-def drive(params, replicas: int, make=make_handel, ms: int = SIM_MS) -> dict:
+def drive(params, replicas: int, make=make_handel, ms: int = SIM_MS, profile: str = None) -> dict:
     """A lockstep path (Handel, GSF) as a user drives it: make(params),
-    replicate_state, run_ms_batched in 20-ms chunks with stop_when_done
-    for `ms` ms; returns its measurements."""
+    replicate_state, run_ms_batched in CHUNK_MS-ms chunks with
+    stop_when_done for `ms` ms; returns its measurements.  With `profile`,
+    the first LOCKSTEP_PROFILE_TICKS ticks of the chunk from tick
+    PROFILE_FROM run in a torch.profiler window of that name; its ticks
+    are left out of the wall time, which is the rest's scaled to the
+    whole run."""
     torch.cuda.synchronize()
     t_build = time.perf_counter()
     net, state = make(params)
@@ -1002,17 +1137,28 @@ def drive(params, replicas: int, make=make_handel, ms: int = SIM_MS) -> dict:
     build_s = time.perf_counter() - t_build
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
+    wall, window = 0.0, None
     t0 = time.perf_counter()
-    for _ in range(ms // CHUNK_MS):
-        states = net.run_ms_batched(states, CHUNK_MS, True)
+    for c in range(ms // CHUNK_MS):
+        if profile and c * CHUNK_MS == PROFILE_FROM:
+            torch.cuda.synchronize()
+            wall += time.perf_counter() - t0
+            states, window = _profile_ticks(net, states, LOCKSTEP_PROFILE_TICKS, profile, True)
+            t0 = time.perf_counter()
+            states = net.run_ms_batched(states, CHUNK_MS - LOCKSTEP_PROFILE_TICKS, True)
+        else:
+            states = net.run_ms_batched(states, CHUNK_MS, True)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    wall += time.perf_counter() - t0
     launches = {k.name: k.launches for k in kernels.KERNELS}
     done = states.done_at.cpu().numpy()
     down = states.down.cpu().numpy()
     live_done = np.where(down, 1, done)
     # the lockstep loop stops before the tick after the last completion
     ticks = int(done.max()) + 1 if (live_done > 0).all() else ms
+    if window is not None:
+        wall *= ticks / (ticks - LOCKSTEP_PROFILE_TICKS)
+        window["device_busy_share"] = window["device_ms_per_tick"] / (wall / ticks * 1e3)
     return {
         "nodes": params.node_count,
         "replicas": replicas,
@@ -1027,57 +1173,26 @@ def drive(params, replicas: int, make=make_handel, ms: int = SIM_MS) -> dict:
         "displaced": states.proto["displaced"].cpu().tolist(),
         **_quantiles(done, down),
         "_all_live_done": bool((live_done > 0).all()),
+        "_window": window,
         "_net": net,
         "_states": states,
     }
 
 
 def flagship() -> dict:
-    out = drive(flagship_params(4096), FLAGSHIP_REPLICAS)
+    """The flagship Handel at 4096 nodes, R = FLAGSHIP_REPLICAS, SIM_MS
+    ms, with its profile window inside the run."""
+    out = drive(flagship_params(4096), FLAGSHIP_REPLICAS, profile="profile")
     del out["_net"], out["_states"]
+    window = out.pop("_window")
     if not out["_all_live_done"]:
         raise AssertionError(f"flagship: not every live node finished: {out}")
     for name in ("popcount_words", "popcount_binop", "cand_score"):
         if out["launches"][name] <= 0:
             raise AssertionError(f"flagship: {name} kernel never launched")
     emit({"phase": "flagship", **{k: v for k, v in out.items() if not k.startswith("_")}})
+    emit(window)
     return out
-
-
-def profile_window(flag: dict, warm_ticks: int = 100, ticks: int = 10, make=None,
-                   replicas: int = FLAGSHIP_REPLICAS, phase: str = "profile") -> None:
-    """Where a lockstep tick's time goes, from a short profiled window;
-    `make` builds the path (the flagship by default)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    net, state = (make or (lambda: make_handel(flagship_params(4096))))()
-    states = net.run_ms_batched(replicate_state(state, replicas), warm_ticks)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        states = net.run_ms_batched(states, ticks)
-        torch.cuda.synchronize()
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not kern:
-        raise AssertionError("profile: the profiler recorded no device activity")
-    device_ms = sum(e.device_time for e in kern) / 1e3 / ticks
-    ops = [e for e in prof.key_averages() if e.key.startswith("aten::")]
-    ops.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    emit({
-        "phase": phase,
-        "window_ticks": [warm_ticks, warm_ticks + ticks],
-        "kernels_per_tick": len(kern) / ticks,
-        "device_ms_per_tick": device_ms,
-        # against the unprofiled run's wall time per tick
-        "device_busy_share": device_ms / flag["ms_per_tick"],
-        "hand_kernels_per_tick": device_ms_by_kernel(kern, ticks),
-        "popcount_forms_per_tick": forms_by_kernel(kern, ticks),
-        "top_ops": [
-            {"op": e.key, "calls_per_tick": e.count / ticks,
-             "device_ms_per_tick": e.self_device_time_total / 1e3 / ticks}
-            for e in ops[:10]
-        ],
-    })
 
 
 def byzantine() -> dict:
@@ -1095,10 +1210,12 @@ def byzantine() -> dict:
 
 def gsf() -> dict:
     """GSF at 2048 nodes (BASELINE config 2, the defaults of gsf.py),
-    R = 32, 1000 ms in 20-ms chunks with stop_when_done."""
+    R = 32, 1000 ms in 20-ms chunks with stop_when_done, with gsf_profile
+    inside the run."""
     params = GSFSignatureParameters(node_count=GSF_NODES)
-    out = drive(params, GSF_REPLICAS, make=make_gsf)
+    out = drive(params, GSF_REPLICAS, make=make_gsf, profile="gsf_profile")
     del out["_net"], out["_states"]
+    window = out.pop("_window")
     if not out["_all_live_done"]:
         raise AssertionError(f"gsf: not every node finished: {out}")
     for name in ("popcount_words", "popcount_binop", "cand_score", "lowest_set_bit"):
@@ -1106,38 +1223,43 @@ def gsf() -> dict:
             raise AssertionError(f"gsf: {name} kernel never launched")
     emit({"phase": "gsf", "threshold": params.threshold,
           **{k: v for k, v in out.items() if not k.startswith("_")}})
+    emit(window)
     return out
 
 
 def p2phandel() -> dict:
     """P2PHandel at the reference defaults (120 nodes, 40 connections),
-    R = P2P_REPLICAS, stop_when_done, at most P2P_MS ms, on the 512-row
-    wheel: every node must finish and nothing may drop."""
+    R = P2P_REPLICAS, P2P_MS ms on the 512-row wheel, with p2p_profile
+    inside the run: nothing may drop and replica 0 must give the JAX
+    package's seed-0 counters (P2P_R0)."""
     t_build = time.perf_counter()
     net, state = make_p2phandel()
     states = replicate_state(state, P2P_REPLICAS)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t_build
-    states, wall, launches = _timed_run(net, states, P2P_MS, True)
+    states, wall, ticks, launches, window = _profiled_run(net, states, P2P_MS, PROFILE_FROM,
+                                                          "p2p_profile")
     done = states.done_at.cpu().numpy()
     down = states.down.cpu().numpy()
     dropped = states.dropped.cpu().numpy()
-    q = _quantiles(done, down)
-    if q["done_share"] != 1.0:
-        raise AssertionError(f"p2phandel: done share {q['done_share']}")
-    if dropped.any():
-        raise AssertionError(f"p2phandel: {int(dropped.sum())} messages dropped")
-    if launches["pack_bool_words"] <= 0:
-        raise AssertionError("p2phandel: pack_bool_words kernel never launched")
-    # the per-ms loop stops before the tick after the last completion
-    ticks = int(done.max()) + 1
+    p = states.proto
+    r0 = {"msg_received": int(states.msg_received[0].sum()),
+          "msg_sent": int(states.msg_sent[0].sum()), "done": int((done[0] > 0).sum()),
+          **{k: int(p[k][0].to(torch.int64).sum()) for k in (
+              "verified", "ver_card", "ver_sig", "peers_state", "ver_done_t", "last_check")}}
     out = {"nodes": int(done.shape[1]), "replicas": P2P_REPLICAS, "build_s": build_s,
            "wall_s": wall, "sims_per_s": P2P_REPLICAS / wall, "ticks": ticks,
            "ms_per_tick": wall / ticks * 1e3, "launches": launches,
            "launches_per_tick": {k: v / ticks for k, v in launches.items()},
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
-           "dropped": int(dropped.sum()), **q}
+           "replica0": r0, "dropped": int(dropped.sum()), **_quantiles(done, down)}
     emit({"phase": "p2phandel", **out})
+    emit(window)
+    if dropped.any():
+        raise AssertionError(f"p2phandel: {int(dropped.sum())} messages dropped")
+    _check_replica0("p2phandel", r0, P2P_R0)
+    if launches["pack_bool_words"] <= 0:
+        raise AssertionError("p2phandel: pack_bool_words kernel never launched")
     return out
 
 
@@ -1169,73 +1291,36 @@ def _loop_numbers(net, replicas: int, wall: float, launches: dict) -> dict:
 
 
 def pingpong() -> dict:
+    """PingPong at PP_NODES nodes, R = PP_REPLICAS, run_ms_batched(PP_MS,
+    stop_when_done=True) on the 512-row wheel, with pp_profile inside the
+    run: every witness counts every pong, nothing drops, and the occupancy
+    kernels launch."""
     t_build = time.perf_counter()
     net, state = make_pingpong(PP_NODES)
     states = replicate_state(state, PP_REPLICAS)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t_build
-    states, wall, launches = _timed_run(net, states, PP_MS, True)
+    states, wall, launches, window = _windowed_jumps(net, states, PP_MS, True, "pp_profile")
     pong = states.proto["pong"][:, 0].cpu().numpy()
-    dropped = states.dropped.cpu().numpy()
-    if not (pong == PP_NODES).all():
-        raise AssertionError(f"pingpong: {(pong != PP_NODES).sum()} witnesses not done")
-    if dropped.any():
-        raise AssertionError(f"pingpong: {int(dropped.sum())} messages dropped")
-    for name in ("pack_occupied", "lowest_set_bit", "popcount_words"):
-        if launches[name] <= 0:
-            raise AssertionError(f"pingpong: {name} kernel never launched")
     # with stop_when_done a replica's last executed tick is the tick its
     # witness counted its last pong
     done_tick = net.jump_stats["last_tick"].cpu().numpy()
     q = np.percentile(done_tick, [10, 50, 90]).tolist()
-    out = {"nodes": PP_NODES, "ms": PP_MS, "build_s": build_s,
-           **_loop_numbers(net, PP_REPLICAS, wall, launches),
-           "done_tick_p10": q[0], "done_tick_p50": q[1], "done_tick_p90": q[2],
-           "done_tick_max": int(done_tick.max()), "dropped": int(dropped.sum())}
-    emit({"phase": "pingpong", **out})
-    return out
-
-
-def pp_profile(pp: dict, warm_ms: int = 200, window_ms: int = 20) -> None:
-    """Where a PingPong iteration's time goes: a profiled window of
-    window_ms simulated ms after warm_ms, per loop iteration."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    net, state = make_pingpong(PP_NODES)
-    states = net.run_ms_batched(replicate_state(state, PP_REPLICAS), warm_ms)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        states = net.run_ms_batched(states, window_ms)
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    it = net.jump_stats["iterations"]
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not kern:
-        raise AssertionError("pp_profile: the profiler recorded no device activity")
-    device_ms = sum(e.device_time for e in kern) / 1e3
-    ops = [e for e in prof.key_averages() if e.key.startswith("aten::")]
-    ops.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    hand = device_ms_by_kernel(kern, it)
-    if "pack_occupied_rows" not in hand:
+    out = {**_jump_row("pingpong", net, PP_REPLICAS, build_s, wall, launches, window, states),
+           "ms": PP_MS, "done_tick_p10": q[0], "done_tick_p50": q[1], "done_tick_p90": q[2],
+           "done_tick_max": int(done_tick.max())}
+    emit(out)
+    emit(window)
+    if not (pong == PP_NODES).all():
+        raise AssertionError(f"pingpong: {(pong != PP_NODES).sum()} witnesses not done")
+    if out["dropped"]:
+        raise AssertionError(f"pingpong: {out['dropped']} messages dropped")
+    for name in ("pack_occupied", "lowest_set_bit", "popcount_words"):
+        if launches[name] <= 0:
+            raise AssertionError(f"pingpong: {name} kernel never launched")
+    if "pack_occupied_rows" not in window["hand_kernels_per_iteration"]:
         raise AssertionError("pp_profile: no pack_occupied_rows kernel in the window")
-    emit({
-        "phase": "pp_profile",
-        "window_ms": [warm_ms, warm_ms + window_ms],
-        "iterations": it,
-        "kernels_per_iteration": len(kern) / it,
-        "device_ms_per_iteration": device_ms / it,
-        # against the unprofiled run's wall time per iteration
-        "device_busy_share": device_ms / it / pp["ms_per_iteration"],
-        "hand_kernels_per_iteration": hand,
-        "pack_occupied_device_ms_per_iteration": hand["pack_occupied_rows"]["device_ms"],
-        "top_ops": [
-            {"op": e.key, "calls_per_iteration": e.count / it,
-             "device_ms_per_iteration": e.self_device_time_total / 1e3 / it}
-            for e in ops[:10]
-        ],
-    })
+    return out
 
 
 def dfinity() -> dict:
@@ -1263,7 +1348,7 @@ def dfinity() -> dict:
     return out
 
 
-def _profile_ticks(net, states, ticks: int, phase: str):
+def _profile_ticks(net, states, ticks: int, phase: str, stop_when_done: bool = False):
     """A torch.profiler window of `ticks` ticks inside a lockstep run;
     returns (states, the window's numbers)."""
     from torch.autograd import DeviceType
@@ -1271,15 +1356,19 @@ def _profile_ticks(net, states, ticks: int, phase: str):
 
     t0 = int(states.time.reshape(-1)[0])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        states = net.run_ms_batched(states, ticks)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    with prof:
+        states = net.run_ms_batched(states, ticks, stop_when_done)
         torch.cuda.synchronize()
+        t_close = time.perf_counter()
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kern:
         raise AssertionError(f"{phase}: the profiler recorded no device activity")
     ops = [e for e in prof.key_averages() if e.key.startswith("aten::")]
     ops.sort(key=lambda e: e.self_device_time_total, reverse=True)
     return states, {
+        # the profiler's own seconds from the window's close to its numbers
+        "profiler_s": time.perf_counter() - t_close,
         "phase": phase,
         "window_ticks": [t0, t0 + ticks],
         "kernels_per_tick": len(kern) / ticks,
@@ -1297,9 +1386,9 @@ def _profile_ticks(net, states, ticks: int, phase: str):
 def _profiled_run(net, states, ms: int, at: int, phase: str):
     """A lockstep run of `ms` ticks as a user drives it, with the launch
     counts zeroed just before and read just after, and a PROFILE_TICKS
-    window at tick `at` inside it (its ticks are left out of the wall
-    time).  Returns (states, wall seconds, timed ticks, launches, the
-    window's numbers)."""
+    window at tick `at` inside it.  The window's ticks are left out of the
+    wall time, which is the rest's scaled to the whole run.  Returns
+    (states, wall seconds, ticks, launches, the window's numbers)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
@@ -1314,9 +1403,9 @@ def _profiled_run(net, states, ms: int, at: int, phase: str):
     torch.cuda.synchronize()
     wall += time.perf_counter() - t0
     launches = {k.name: k.launches for k in kernels.KERNELS}
-    ticks = ms - PROFILE_TICKS
-    window["device_busy_share"] = window["device_ms_per_tick"] / (wall / ticks * 1e3)
-    return states, wall, ticks, launches, window
+    wall *= ms / (ms - PROFILE_TICKS)
+    window["device_busy_share"] = window["device_ms_per_tick"] / (wall / ms * 1e3)
+    return states, wall, ms, launches, window
 
 
 def handeleth2() -> dict:
@@ -1406,46 +1495,12 @@ def sanfermin() -> dict:
     return out
 
 
-class _WindowDone(Exception):
-    """Ends a run once its profiled window has closed."""
-
-
-def _profile_iterations(net, states, ms: int, stop_when_done: bool, iterations: int,
-                        phase: str) -> dict:
-    """A torch.profiler window over PROFILE_TICKS loop iterations from
-    iteration PROFILE_FROM of an event-driven run from `states` (a
-    second run of a configuration already timed in `iterations`
-    iterations, so the timed run stays unprofiled; a shorter run profiles
-    its last iterations); the run stops when the window closes.  Returns
-    the window's numbers per iteration."""
+def _iteration_window(prof, phase: str, start: int, per: int) -> dict:
+    """A profiled window of `per` loop iterations from iteration `start`,
+    per iteration: kernels, device ms, the hand-written kernels and the
+    ops that take the device time."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    per = min(PROFILE_TICKS, iterations)
-    start = min(PROFILE_FROM, iterations - per)
-    step, done = net._step_jump, [0]
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-
-    def stepped(s, t, ends):
-        if done[0] == start:
-            torch.cuda.synchronize()
-            prof.__enter__()
-        out = step(s, t, ends)
-        done[0] += 1
-        if done[0] == start + per:
-            torch.cuda.synchronize()
-            prof.__exit__(None, None, None)
-            raise _WindowDone
-        return out
-
-    net._step_jump = stepped
-    try:
-        net.run_ms_batched(states, ms, stop_when_done)
-        raise AssertionError(f"{phase}: the run ended before iteration {start + per}")
-    except _WindowDone:
-        pass
-    finally:
-        del net._step_jump  # the class's method again
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kern:
         raise AssertionError(f"{phase}: the profiler recorded no device activity")
@@ -1463,6 +1518,222 @@ def _profile_iterations(net, states, ms: int, stop_when_done: bool, iterations: 
             for e in ops[:12]
         ],
     }
+
+
+def _windowed_jumps(net, states, ms: int, stop_when_done: bool, phase: str,
+                    start: int = PROFILE_FROM, per: int = PROFILE_TICKS):
+    """An event-driven run as a user drives it (run_ms_batched), with the
+    launch counts zeroed just before and read just after, and a `per`-
+    iteration torch.profiler window from iteration `start` inside it.  The
+    window's iterations are left out of the wall time, which is the rest's
+    scaled to the whole run.  Returns (states, wall seconds, launches,
+    window)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step, done, window_s, close_s = net._step_jump, [0], [0.0], [0.0]
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+    def stepped(s, t, ends):
+        if done[0] == start:
+            torch.cuda.synchronize()
+            window_s[0] -= time.perf_counter()
+            prof.__enter__()
+        out = step(s, t, ends)
+        done[0] += 1
+        if done[0] == start + per:
+            torch.cuda.synchronize()
+            t_close = time.perf_counter()
+            prof.__exit__(None, None, None)
+            now = time.perf_counter()
+            close_s[0] = now - t_close
+            window_s[0] += now
+        return out
+
+    net._step_jump = stepped
+    try:
+        states, wall, launches = _timed_run(net, states, ms, stop_when_done)
+    finally:
+        del net._step_jump  # the class's method again
+    if done[0] < start + per:
+        raise AssertionError(f"{phase}: the run ended before its profiled window closed")
+    t_parse = time.perf_counter()
+    window = _iteration_window(prof, phase, start, per)
+    # the profiler's own seconds from the window's close to its numbers
+    window["profiler_s"] = close_s[0] + time.perf_counter() - t_parse
+    it = net.jump_stats["iterations"]
+    wall = (wall - window_s[0]) * it / (it - per)
+    window["device_busy_share"] = window["device_ms_per_iteration"] / (wall / it * 1e3)
+    return states, wall, launches, window
+
+
+def _check_replica0(path: str, got: dict, want: dict) -> None:
+    if got != want:
+        raise AssertionError(f"{path}: replica 0 gives {got}, the JAX package {want}")
+
+
+def _percentiles(x: np.ndarray) -> list:
+    return [round(float(v), 6) for v in np.percentile(x, [10, 50, 90])]
+
+
+def _jump_row(path: str, net, replicas: int, build_s: float, wall: float, launches: dict,
+              window: dict, states) -> dict:
+    """The numbers of an event-driven run and its window, as one row."""
+    it = net.jump_stats["iterations"]
+    return {"phase": path, "nodes": net.n_nodes, "replicas": replicas,
+            "capacity": net.capacity, "build_s": build_s, "iterations": it,
+            "wall_s": wall, "ms_per_iteration": wall / it * 1e3,
+            "sims_per_s": replicas / wall, "launches": launches,
+            "launches_per_iteration": {k: v / it for k, v in launches.items()},
+            "kernels_per_iteration": window["kernels_per_iteration"],
+            "device_ms_per_iteration": window["device_ms_per_iteration"],
+            "device_busy_share": window["device_busy_share"],
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "dropped": int(states.dropped.sum())}
+
+
+def avalanche(path: str) -> dict:
+    """Slush or Snowflake at the reference main, R = AV_REPLICAS,
+    run_ms_batched(AV_MS, stop_when_done=True) on the 512-row wheel: every
+    node of every replica colored and none querying, nothing dropped,
+    replica 0 equal to the JAX package's seed-0 run, and the occupancy
+    kernels launched."""
+    make, params = AV_PATHS[path]
+    t_build = time.perf_counter()
+    net, state = make(params())
+    states = replicate_state(state, AV_REPLICAS)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_build
+    states, wall, launches, window = _windowed_jumps(net, states, AV_MS, True,
+                                                            f"{path}_profile")
+    p = states.proto
+    out = _jump_row(path, net, AV_REPLICAS, build_s, wall, launches, window, states)
+    last = net.jump_stats["last_tick"].cpu().numpy()
+    r0 = {"color": int(p["color"][0].sum()), "iter": int(p["iter"][0].sum()),
+          "nonce": int(p["nonce"][0].sum()), "msg_received": int(states.msg_received[0].sum()),
+          "msg_sent": int(states.msg_sent[0].sum())}
+    out.update({"quiet_tick_p10_p50_p90": _percentiles(last), "quiet_tick_max": int(last.max()),
+                "replica0": r0})
+    emit(out)
+    emit(window)
+    colored = bool((p["color"] == 1).logical_or(p["color"] == 2).all())
+    if not colored or bool(p["active"].any()):
+        raise AssertionError(f"{path}: a replica is not colored and quiescent")
+    if out["dropped"]:
+        raise AssertionError(f"{path}: {out['dropped']} messages dropped")
+    _check_replica0(path, r0, AV_R0[path])
+    for name in ("pack_occupied", "lowest_set_bit", "popcount_words"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{path}: {name} kernel never launched")
+    return out
+
+
+def p2pflood() -> dict:
+    """P2PFlood at the reference defaults, R = FLOOD_REPLICAS, FLOOD_MS
+    with stop_when_done on the flat store: every live node reached,
+    nothing dropped, replica 0 equal to the JAX package's seed-0 run.
+    Its path calls no hand-written kernel."""
+    t_build = time.perf_counter()
+    net, state = make_p2pflood(capacity=FLOOD_CAPACITY)
+    states = replicate_state(state, FLOOD_REPLICAS)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_build
+    states, wall, launches, window = _windowed_jumps(net, states, FLOOD_MS, True,
+                                                            "p2pflood_profile")
+    out = _jump_row("p2pflood", net, FLOOD_REPLICAS, build_s, wall, launches, window, states)
+    done, down = states.done_at.cpu().numpy(), states.down.cpu().numpy()
+    d0 = done[0][~down[0]]
+    r0 = {"done": int((d0 > 0).sum()), "done_at_p10_p50_p90": _percentiles(d0),
+          "done_at_max": int(d0.max()), "msg_received": int(states.msg_received[0].sum()),
+          "msg_sent": int(states.msg_sent[0].sum())}
+    live = done[~down]
+    out.update({"done_share": float((live > 0).mean()),
+                "done_at_p10_p50_p90": _percentiles(live), "replica0": r0})
+    emit(out)
+    emit(window)
+    if out["done_share"] != 1.0:
+        raise AssertionError(f"p2pflood: done share {out['done_share']}")
+    if out["dropped"]:
+        raise AssertionError(f"p2pflood: {out['dropped']} messages dropped")
+    _check_replica0("p2pflood", r0, FLOOD_R0)
+    return out
+
+
+def optimistic() -> dict:
+    """OptimisticP2PSignature at 1000 nodes (threshold 501, 13
+    connections, pairing time 3), capacity OPT_CAPACITY on the flat store,
+    R = OPT_REPLICAS, OPT_MS with stop_when_done: every node of every
+    replica done, nothing dropped, replica 0 equal to the JAX package's
+    seed-0 run.  Its path calls no hand-written kernel."""
+    t_build = time.perf_counter()
+    net, state = make_optimistic(OptimisticP2PSignatureParameters(1000, 501, 13, 3),
+                                 capacity=OPT_CAPACITY)
+    states = replicate_state(state, OPT_REPLICAS)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_build
+    states, wall, launches, window = _windowed_jumps(net, states, OPT_MS, True,
+                                                            "optimistic_profile")
+    out = _jump_row("optimistic", net, OPT_REPLICAS, build_s, wall, launches, window, states)
+    done = states.done_at.cpu().numpy()
+    r0 = {"done": int((done[0] > 0).sum()), "done_at_p10_p50_p90": _percentiles(done[0]),
+          "done_at_min": int(done[0].min()), "done_at_max": int(done[0].max()),
+          "received_bits": int(states.proto["received"][0].sum()),
+          "msg_received": int(states.msg_received[0].sum()),
+          "msg_sent": int(states.msg_sent[0].sum()), "pending": int(states.ovf_valid[0].sum())}
+    out.update({"done_share": float((done > 0).mean()),
+                "done_at_p10_p50_p90": _percentiles(done),
+                "msg_sent_per_replica": states.msg_sent.sum(-1).tolist(), "replica0": r0})
+    emit(out)
+    emit(window)
+    if out["done_share"] != 1.0:
+        raise AssertionError(f"optimistic: done share {out['done_share']}")
+    if out["dropped"]:
+        raise AssertionError(f"optimistic: {out['dropped']} messages dropped")
+    _check_replica0("optimistic", r0, OPT_R0)
+    return out
+
+
+def cappos() -> dict:
+    """SanFerminCappos at 1024 nodes (threshold 512, 50 candidates),
+    capacity CAPPOS_CAPACITY on the 512-row wheel, R = CAPPOS_REPLICAS,
+    CAPPOS_MS ms, with cappos_profile at ticks 300-319: nothing dropped,
+    replica 0 equal to the JAX package's seed-0 run.  Its path calls no
+    hand-written kernel (the per-ms loop reads no wheel occupancy)."""
+    t_build = time.perf_counter()
+    net, state = make_sanfermin_cappos(SanFerminParameters(1024, 512, 2, 48, 150, 50),
+                                       capacity=CAPPOS_CAPACITY)
+    states = replicate_state(state, CAPPOS_REPLICAS)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_build
+    states, wall, ticks, launches, window = _profiled_run(net, states, CAPPOS_MS,
+                                                          CAPPOS_PROFILE_AT, "cappos_profile")
+    p = states.proto
+    done, thr_done = p["done"].cpu().numpy(), p["thr_done"].cpu().numpy()
+    done_at, thr_at = states.done_at.cpu().numpy(), p["thr_at"].cpu().numpy()
+    d0, t0 = done_at[0][done[0]], thr_at[0][thr_done[0]]
+    r0 = {"done": int(done[0].sum()), "not_done": np.nonzero(~done[0])[0].tolist(),
+          "done_at_p10_p50_p90": _percentiles(d0), "done_at_min": int(d0.min()),
+          "done_at_max": int(d0.max()), "thr_done": int(thr_done[0].sum()),
+          "thr_at_p10_p50_p90": _percentiles(t0),
+          "msg_received": int(states.msg_received[0].sum()),
+          "msg_sent": int(states.msg_sent[0].sum()), "cpl": int(p["cpl"][0].sum())}
+    out = {"phase": "cappos", "nodes": net.n_nodes, "replicas": CAPPOS_REPLICAS,
+           "ms": CAPPOS_MS, "capacity": CAPPOS_CAPACITY, "wheel_slots": net.wheel_slots,
+           "build_s": build_s, "ticks": ticks, "wall_s": wall,
+           "ms_per_tick": wall / ticks * 1e3, "sims_per_s": CAPPOS_REPLICAS / wall,
+           "launches": launches,
+           "launches_per_tick": {k: v / CAPPOS_MS for k, v in launches.items()},
+           "kernels_per_tick": window["kernels_per_tick"],
+           "device_ms_per_tick": window["device_ms_per_tick"],
+           "device_busy_share": window["device_busy_share"],
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "done_share": float(done.mean()), "done_at_p10_p50_p90": _percentiles(done_at[done]),
+           "replica0": r0, "dropped": int(states.dropped.sum())}
+    emit(out)
+    emit(window)
+    if out["dropped"]:
+        raise AssertionError(f"cappos: {out['dropped']} messages dropped")
+    _check_replica0("cappos", r0, CAPPOS_R0)
+    return out
 
 
 def casper_replica0(states) -> dict:
@@ -1492,9 +1763,9 @@ def casper() -> dict:
     """BASELINE config 4: make_casper(CasperParameters(cycle_length=4,
     attesters_per_round=256, ...), max_heights=12) at 1027 nodes,
     replicate_state(CASPER_REPLICAS), run_ms_batched(48000), once per
-    latency model of the sweep, each with a profiled window from
-    iteration PROFILE_FROM of a second run.  Its path launches no
-    hand-written kernel (the flat store reads no wheel occupancy)."""
+    latency model of the sweep, each with its CASPER_WINDOWS profiled
+    window inside the run.  Its path launches no hand-written kernel (the
+    flat store reads no wheel occupancy)."""
     out = {}
     for model, kw in CASPER_MODELS.items():
         t_build = time.perf_counter()
@@ -1503,17 +1774,19 @@ def casper() -> dict:
         states = replicate_state(state, CASPER_REPLICAS)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t_build
-        states, wall, launches = _timed_run(net, states, CASPER_MS, False)
-        loop = _loop_numbers(net, CASPER_REPLICAS, wall, launches)
+        start, per = CASPER_WINDOWS[model]
+        states, wall, launches, window = _windowed_jumps(
+            net, states, CASPER_MS, False, f"casper_{model}_profile", start, per)
         p = states.proto
         exists = p["blk_exists"]
         chain = (p["blk_parent"] == net.protocol.hr - 1) | ~exists
         r0 = casper_replica0(states)
-        row = {"model": model, "nodes": net.n_nodes, "max_heights": CASPER_HEIGHTS,
-               "ms": CASPER_MS, "capacity": net.overflow_capacity, "build_s": build_s, **loop,
-               "blocks_per_replica_min": int(exists.sum(-1).min()) - 1,
-               "replica0": r0, "dropped": int(states.dropped.sum())}
-        emit({"phase": "casper", **row})
+        row = {**_jump_row("casper", net, CASPER_REPLICAS, build_s, wall, launches, window,
+                           states),
+               "model": model, "max_heights": CASPER_HEIGHTS, "ms": CASPER_MS,
+               "blocks_per_replica_min": int(exists.sum(-1).min()) - 1, "replica0": r0}
+        emit(row)
+        emit(window)
         if row["dropped"]:
             raise AssertionError(f"casper {model}: {row['dropped']} messages dropped")
         if not (chain[:, 1:].all() and (exists.sum(-1) >= 5).all()):
@@ -1522,12 +1795,6 @@ def casper() -> dict:
         if r0 != CASPER_R0:
             raise AssertionError(f"casper {model}: replica 0 gives {r0}, the JAX package "
                                  f"{CASPER_R0}")
-        window = _profile_iterations(net, replicate_state(state, CASPER_REPLICAS), CASPER_MS,
-                                     False, loop["iterations"], f"casper_{model}_profile")
-        window["device_busy_share"] = window["device_ms_per_iteration"] / loop["ms_per_iteration"]
-        row.update({k: window[k] for k in ("kernels_per_iteration", "device_ms_per_iteration",
-                                           "device_busy_share")})
-        emit(window)
         out[model] = row
     total = sum(r["wall_s"] for r in out.values())
     emit({"phase": "casper_sweep", "wall_s": total,
@@ -1538,19 +1805,19 @@ def casper() -> dict:
 def paxos() -> dict:
     """make_paxos(PaxosParameters()) on the 512-row wheel,
     replicate_state(PAXOS_REPLICAS), run_ms_batched(5000,
-    stop_when_done=True): no replica's proposers accept two values or one
-    nobody proposed, every replica decides but the seeds the JAX package
-    leaves undecided (PAXOS_UNDECIDED), replica 0 gives the JAX package's
-    seed-0 run, nothing drops, and the occupancy kernels launch;
-    paxos_profile is a window from iteration PROFILE_FROM of a second run.
-    The run's numbers are printed before the checks fail."""
+    stop_when_done=True) with paxos_profile inside it: no replica's
+    proposers accept two values or one nobody proposed, every replica
+    decides but the seeds the JAX package leaves undecided
+    (PAXOS_UNDECIDED), replica 0 gives the JAX package's seed-0 run,
+    nothing drops, and the occupancy kernels launch.  The run's numbers
+    are printed before the checks fail."""
     t_build = time.perf_counter()
     net, state = make_paxos(PaxosParameters())
     states = replicate_state(state, PAXOS_REPLICAS)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t_build
-    states, wall, launches = _timed_run(net, states, PAXOS_MS, True)
-    loop = _loop_numbers(net, PAXOS_REPLICAS, wall, launches)
+    states, wall, launches, window = _windowed_jumps(net, states, PAXOS_MS, True,
+                                                     "paxos_profile")
     prop = net.protocol.prop_ids.long()
     val = states.proto["value_accepted"][:, prop]
     done = states.done_at[:, prop].cpu().numpy()
@@ -1562,13 +1829,13 @@ def paxos() -> dict:
           "msg_sent": int(states.msg_sent[0].sum())}
     fin = done[done > 0]
     q = np.percentile(fin, [10, 50, 90]).tolist()
-    out = {"nodes": net.n_nodes, "ms": PAXOS_MS, "build_s": build_s, **loop,
-           "done_at_p10": q[0], "done_at_p50": q[1], "done_at_p90": q[2],
+    out = {**_jump_row("paxos", net, PAXOS_REPLICAS, build_s, wall, launches, window, states),
+           "ms": PAXOS_MS, "done_at_p10": q[0], "done_at_p50": q[1], "done_at_p90": q[2],
            "done_at_max": int(fin.max()), "replica0": r0,
            "undecided_seeds": torch.nonzero(undecided)[:, 0].tolist(),
-           "split_seeds": torch.nonzero(split)[:, 0].tolist(),
-           "dropped": int(states.dropped.sum())}
-    emit({"phase": "paxos", **out})
+           "split_seeds": torch.nonzero(split)[:, 0].tolist()}
+    emit(out)
+    emit(window)
     want = {"done_at": [487, 912, 226], "value": 95, "msg_received": 77, "msg_sent": 78}
     if r0 != want:
         raise AssertionError(f"paxos: replica 0 gives {r0}, the JAX package {want}")
@@ -1584,17 +1851,12 @@ def paxos() -> dict:
     for name in ("pack_occupied", "lowest_set_bit", "popcount_words"):
         if launches[name] <= 0:
             raise AssertionError(f"paxos: {name} kernel never launched")
-    window = _profile_iterations(net, replicate_state(state, PAXOS_REPLICAS), PAXOS_MS, True,
-                                 loop["iterations"], "paxos_profile")
-    window["device_busy_share"] = window["device_ms_per_iteration"] / loop["ms_per_iteration"]
-    out.update({k: window[k] for k in ("kernels_per_iteration", "device_ms_per_iteration",
-                                       "device_busy_share")})
-    emit(window)
     return out
 
 
 PHASES = ("kernels", "identity", "flagship", "byzantine", "pingpong", "dfinity", "gsf",
-          "p2phandel", "handeleth2", "sanfermin", "casper", "paxos")
+          "p2phandel", "handeleth2", "sanfermin", "casper", "paxos", "slush", "snowflake",
+          "p2pflood", "optimistic", "cappos")
 
 
 def main(argv) -> int:
@@ -1608,45 +1870,55 @@ def main(argv) -> int:
         return only is None or name in only
 
     info = device_info()
+    t_last, seconds = [time.perf_counter()], {}
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        seconds[name] = now - t_last[0]
+        t_last[0] = now
+
     build()
+    lap("build")
     runs = {}
     if want("kernels"):
         rows = run_kernels()
         agg = aggregation_kernels(torch.Generator(device="cuda").manual_seed(2))
         eth2 = eth2_kernels(torch.Generator(device="cuda").manual_seed(3))
         pax = paxos_kernels(torch.Generator().manual_seed(4))
+        lap("kernels")
     if want("identity"):
         identity()
+        lap("identity")
     if want("flagship"):
         runs["flagship"] = flag = flagship()
-        profile_window(flag)
+        lap("flagship")
     if want("byzantine"):
         runs["byzantine"] = byz = byzantine()
         real = lowest_real_rows(byz.pop("_net"), byz.pop("_states"))
         lowest_rows, andnot_rows = lowest_bucket_times(real), andnot_bucket_times(real)
         emit({"phase": "byz_rows", "lowest_set_bit": lowest_rows,
               "lowest_set_bit_andnot": andnot_rows})
+        lap("byzantine")
     if want("pingpong"):
         runs["pingpong"] = pp = pingpong()
-        pp_profile(pp)
+        lap("pingpong")
     if want("dfinity"):
         runs["dfinity"] = dfinity()
+        lap("dfinity")
     if want("gsf"):
-        runs["gsf"] = g = gsf()
-        profile_window(g, make=lambda: make_gsf(GSFSignatureParameters(node_count=GSF_NODES)),
-                       replicas=GSF_REPLICAS, phase="gsf_profile")
+        runs["gsf"] = gsf()
+        lap("gsf")
     if want("p2phandel"):
-        runs["p2phandel"] = p2 = p2phandel()
-        profile_window(p2, ticks=20, make=make_p2phandel, replicas=P2P_REPLICAS,
-                       phase="p2p_profile")
-    if want("handeleth2"):
-        runs["handeleth2"] = handeleth2()
-    if want("sanfermin"):
-        runs["sanfermin"] = sanfermin()
-    if want("casper"):
-        runs["casper"] = casper()
-    if want("paxos"):
-        runs["paxos"] = paxos()
+        runs["p2phandel"] = p2phandel()
+        lap("p2phandel")
+    for path, run in (("handeleth2", handeleth2), ("sanfermin", sanfermin), ("casper", casper),
+                      ("paxos", paxos), ("slush", lambda: avalanche("slush")),
+                      ("snowflake", lambda: avalanche("snowflake")), ("p2pflood", p2pflood),
+                      ("optimistic", optimistic), ("cappos", cappos)):
+        if want(path):
+            runs[path] = run()
+            lap(path)
+    emit({"phase": "phase_seconds", **seconds, "total": sum(seconds.values())})
     # every path's launches of every form, from that path's own run
     emit({"phase": "launches_by_path",
           **{path: out["launches"] for path, out in runs.items()}})

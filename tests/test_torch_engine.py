@@ -108,3 +108,29 @@ def test_stack_states_matches():
                 assert np.array_equal(w[k], got[f][k]), f"proto.{k}"
         elif isinstance(w, np.ndarray):
             assert w.dtype == got[f].dtype and np.array_equal(w, got[f]), f
+
+
+@pytest.mark.parametrize("m", [5, 3000])
+def test_receiver_counters_spread_masked_rows(m):
+    """The delivery's receiver counters (`add_masked`, both columns through
+    one routed index) equal JAX's `.at[to].add(where(mask, vals, 0))` over
+    a view whose unmasked rows all hold node 0, as a sparse store's empty
+    slots do, and whose masked rows repeat destinations; more rows than
+    trash cells wrap around."""
+    from wittgenstein_tpu_torch.ops.indexing import TRASH_CELLS, add_masked
+
+    rng = np.random.RandomState(m)
+    r, n = 3, 17
+    cols = [rng.randint(0, 50, size=(r, n)).astype(np.int32) for _ in range(2)]
+    mask = rng.rand(r, m) < 0.1
+    idx = np.where(mask, rng.randint(0, n, size=(r, m)), 0).astype(np.int32)
+    vals = [mask.astype(np.int32), rng.randint(1, 60, size=(r, m)).astype(np.int32)]
+    got = add_masked(tuple(torch.from_numpy(c) for c in cols), torch.from_numpy(idx),
+                     tuple(torch.from_numpy(v) for v in vals), torch.from_numpy(mask))
+    assert len(got) == 2
+    for col, v, g in zip(cols, vals, got):
+        g = g.numpy()
+        for i in range(r):
+            want = np.asarray(jnp.asarray(col[i]).at[idx[i]].add(np.where(mask[i], v[i], 0)))
+            assert g.dtype == want.dtype and np.array_equal(g[i], want)
+    assert (m > TRASH_CELLS) == (m == 3000)

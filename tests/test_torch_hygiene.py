@@ -32,6 +32,14 @@ from wittgenstein_tpu_torch.protocols.paxos_batched import make_paxos
 from wittgenstein_tpu_torch.protocols.pingpong_batched import make_pingpong
 from wittgenstein_tpu_torch.protocols.sanfermin import SanFerminSignatureParameters
 from wittgenstein_tpu_torch.protocols.sanfermin_batched import make_sanfermin
+from wittgenstein_tpu_torch.protocols.avalanche_batched import make_slush, make_snowflake
+from wittgenstein_tpu_torch.protocols.optimistic_p2p_signature import (
+    OptimisticP2PSignatureParameters,
+)
+from wittgenstein_tpu_torch.protocols.optimistic_p2p_signature_batched import make_optimistic
+from wittgenstein_tpu_torch.protocols.p2pflood_batched import make_p2pflood
+from wittgenstein_tpu_torch.protocols.sanfermin_cappos import SanFerminParameters
+from wittgenstein_tpu_torch.protocols.sanfermin_cappos_batched import make_sanfermin_cappos
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = Path(wittgenstein_tpu_torch.__file__).resolve().parent
@@ -90,7 +98,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         make_handel(params)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         BatchedNetwork(BatchedHandel(params), registry_network_latencies.get_by_name(None), 64)
-    for make in (make_pingpong, make_dfinity, make_casper, make_paxos):
+    for make in (make_pingpong, make_dfinity, make_casper, make_paxos, make_slush,
+                 make_snowflake, make_p2pflood):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     # asking for the CPU is the one way to run without a card
@@ -105,10 +114,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
                                          connection_count=6)),
     (make_handeleth2, HandelEth2Parameters(node_count=16)),
     (make_sanfermin, SanFerminSignatureParameters(64, 64, 2, 48, 300, 1, False, None, None)),
-], ids=["make_gsf", "make_p2phandel", "make_handeleth2", "make_sanfermin"])
+    (make_optimistic, OptimisticP2PSignatureParameters(64, 56, 10, 1)),
+    (make_sanfermin_cappos, SanFerminParameters(64, 32, 2, 48, 150, 4)),
+], ids=["make_gsf", "make_p2phandel", "make_handeleth2", "make_sanfermin", "make_optimistic",
+        "make_sanfermin_cappos"])
 def test_aggregation_entry_points_default_to_cuda(monkeypatch, make, params):
-    """GSF, P2PHandel, HandelEth2 and SanFermin: CUDA unless asked for the
-    CPU, and without a card the default raises instead of running on the
+    """GSF, P2PHandel, HandelEth2, SanFermin, OptimisticP2PSignature and
+    SanFerminCappos: CUDA unless asked for the CPU, and without a card the default raises instead of running on the
     CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

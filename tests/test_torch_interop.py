@@ -7,7 +7,8 @@ keys (`PROTO_KEYS`, declared by the protocols that carry words).  For every port
 round trip must give back the JAX state exactly — name, dtype, shape and
 bits — including SanFermin's int32 `agg` (a word in Handel), HandelEth2's
 uint32 words, P2PHandel's bool `ver_sig` (a word in Handel and GSF), and
-CasperIMD's and Paxos's states, which hold no words.
+the states of CasperIMD, Paxos, Slush, Snowflake, P2PFlood,
+OptimisticP2PSignature and SanFerminCappos, which hold no words.
 """
 
 import jax
@@ -29,6 +30,14 @@ from wittgenstein_tpu.protocols.paxos_batched import make_paxos as jpaxos
 from wittgenstein_tpu.protocols.pingpong_batched import make_pingpong as jpingpong
 from wittgenstein_tpu.protocols.sanfermin import SanFerminSignatureParameters
 from wittgenstein_tpu.protocols.sanfermin_batched import make_sanfermin as jsanfermin
+from wittgenstein_tpu.protocols.avalanche_batched import make_slush as jslush
+from wittgenstein_tpu.protocols.avalanche_batched import make_snowflake as jsnowflake
+from wittgenstein_tpu.protocols.optimistic_p2p_signature import OptimisticP2PSignatureParameters
+from wittgenstein_tpu.protocols.optimistic_p2p_signature_batched import make_optimistic as jopt
+from wittgenstein_tpu.protocols.p2pflood import P2PFloodParameters
+from wittgenstein_tpu.protocols.p2pflood_batched import make_p2pflood as jflood
+from wittgenstein_tpu.protocols.sanfermin_cappos import SanFerminParameters
+from wittgenstein_tpu.protocols.sanfermin_cappos_batched import make_sanfermin_cappos as jcappos
 from wittgenstein_tpu_torch.interop import (
     ported_protocols,
     protocol_of,
@@ -60,6 +69,13 @@ BUILDS = {
     "casper": (lambda: jcasper(CasperParameters(), max_heights=16, byz_variant="sf"), None,
                set()),
     "paxos": (jpaxos, None, set()),
+    # bool and int32 leaves only, no words
+    "slush": (jslush, None, set()),
+    "snowflake": (jsnowflake, None, set()),
+    "p2pflood": (lambda: jflood(P2PFloodParameters(msg_count=3)), None, set()),
+    "optimistic": (lambda: jopt(OptimisticP2PSignatureParameters(64, 56, 10, 1)), None, set()),
+    "sanfermin_cappos": (lambda: jcappos(SanFerminParameters(64, 32, 2, 48, 150, 4)), None,
+                         set()),
 }
 
 
@@ -98,7 +114,7 @@ def test_every_ported_protocol_declares_its_state():
     identify its state, and no two protocols' keys identify the same
     state; a protocol without words declares no keys."""
     classes = ported_protocols()
-    assert len(classes) == 9
+    assert len(classes) == 13
     assert sum(bool(c.WORD_LEAVES) for c in classes) == 4  # Handel, GSF, HandelEth2, SanFermin
     for cls in classes:
         assert bool(cls.PROTO_KEYS) == bool(cls.WORD_LEAVES), cls.__name__

@@ -1,8 +1,8 @@
 """The port's node populations and latency models against the JAX package.
 
 The port keeps its own copies of JavaRandom, the default and AWS node
-builders with the AWS city table, and the distance+jitter, AWS-region and
-IC3 latency models; they must reproduce the JAX package's node columns
+builders with the AWS city table, and the distance+jitter, AWS-region,
+IC3, fixed, uniform and no-latency models; they must reproduce the JAX package's node columns
 (same JavaRandom stream, draw for draw) and its vectorized latencies over
 random node pairs and deltas, bit for bit.  The AWS model runs both as
 the batched path feeds it (every `city_idx` -1, so every latency is 1 ms,
@@ -122,7 +122,7 @@ def test_only_default_models_are_registered():
         with pytest.raises(NotImplementedError, match=name):
             tbuilders.get_by_name(name)
     for name in ("NetworkLatencyByCity", "NetworkLatencyByCityWJitter",
-                 "NetworkFixedLatency(100)", "NetworkUniformLatency(100)"):
+                 "EthScanNetworkLatency", "NetworkFixedLatency(7)", "NetworkUniformLatency(7)"):
         with pytest.raises(NotImplementedError, match=name.split("(")[0]):
             tlats.get_by_name(name)
 
@@ -219,3 +219,49 @@ def test_aws_vec_latency_with_regions():
     want, got = _vec_pairs("AwsRegionNetworkLatency", cols, 1027)
     assert np.array_equal(want, got)
     assert got.max() > 100 and (got[:, 100:] == 1).mean() < 0.2
+
+
+SIMPLE_MODELS = (
+    [f"NetworkFixedLatency({f})" for f in (0, 100, 200, 500, 1000, 2000, 4000, 8000)]
+    + [f"NetworkUniformLatency({f})" for f in (0, 100, 200, 500, 1000, 2000, 4000, 8000)]
+    + ["NetworkNoLatency"]
+)
+
+
+def test_simple_models_resolve_as_in_jax():
+    """The FIXED / UNIFORM names the JAX package pre-registers at 0..8000
+    and NetworkNoLatency by class name resolve to the same classes and
+    values; the registry's name() gives the JAX names."""
+    for type_ in (tlats.FIXED, tlats.UNIFORM):
+        for f in tlats.PRESET:
+            assert tlats.name(type_, f) == jlats.name(type_, f)
+    assert tlats.PRESET == (0, 100, 200, 500, 1000, 2000, 4000, 8000)
+    for name in SIMPLE_MODELS:
+        t, j = tlats.get_by_name(name), jlats.get_by_name(name)
+        assert type(t).__name__ == type(j).__name__, name
+        assert str(t) == str(j), name
+        for attr in ("fixed_latency", "max_latency"):
+            assert getattr(t, attr, None) == getattr(j, attr, None), name
+
+
+@pytest.mark.parametrize("name", SIMPLE_MODELS)
+def test_simple_models_ext_vec_match(name):
+    """ext_vec on random deltas 0..99 (all of them among the first rows)
+    and random index pairs, bit for bit, and through vec_latency; the
+    scalar get_extended_latency on every delta."""
+    cols = [_columns(100, s) for s in (0, 5)]
+    want, got = _vec_pairs(name, cols, 100)
+    assert np.array_equal(want, got)
+    rng = np.random.RandomState(4)
+    frm = rng.randint(0, 100, size=(2, 500)).astype(np.int32)
+    to = rng.randint(0, 100, size=(2, 500)).astype(np.int32)
+    delta = rng.randint(0, 100, size=(2, 500)).astype(np.int32)
+    delta[:, :100] = np.arange(100)
+    t, j = tlats.get_by_name(name), jlats.get_by_name(name)
+    got = t.ext_vec(None, torch.from_numpy(frm), torch.from_numpy(to),
+                    torch.from_numpy(delta)).numpy()
+    want = np.stack([np.asarray(j.ext_vec(None, jnp.asarray(frm[r]), jnp.asarray(to[r]),
+                                          jnp.asarray(delta[r]))) for r in range(2)])
+    assert got.dtype == want.dtype == np.int32 and np.array_equal(got, want)
+    for d in range(100):
+        assert t.get_extended_latency(None, None, d) == j.get_extended_latency(None, None, d)

@@ -14,6 +14,10 @@ Entry points (`protocols.handel_batched.make_handel`,
 `protocols.pingpong_batched.make_pingpong`,
 `protocols.dfinity_batched.make_dfinity`,
 `protocols.casper_batched.make_casper`, `protocols.paxos_batched.make_paxos`,
+`protocols.avalanche_batched.make_slush` and `make_snowflake`,
+`protocols.p2pflood_batched.make_p2pflood`,
+`protocols.optimistic_p2p_signature_batched.make_optimistic`,
+`protocols.sanfermin_cappos_batched.make_sanfermin_cappos`,
 `engine.core.BatchedNetwork`)
 run on CUDA unless the caller passes `device="cpu"`; without a card they
 raise instead of falling back.  On a
@@ -24,16 +28,18 @@ Layout mirrors the JAX package so each module's counterpart is easy to
 find:
   utils/      JavaRandom, Pareto distribution, Java integer helpers
   core/       node populations (random and AWS-city builders), geometry,
-              latency models (distance + jitter, AWS regions, IC3),
-              registries
+              latency models (distance + jitter, AWS regions, IC3,
+              fixed, uniform, none), registries
   engine/     SimState, BatchedNetwork (flat store and time wheel, lockstep
               and consensus-jump loops), counter RNG, narrow storage plans
   ops/        packed-bitset ops, their CUDA kernels (ops/csrc) and binding
   oracle/     the P2P overlay graph builder (host-side, no DES)
   protocols/  batched Handel and GSF on the bitset-aggregation base;
-              P2PHandel, HandelEth2 and SanFermin, per-ms on the time
-              wheel; PingPong, Dfinity and Paxos on the event-driven
-              path; CasperIMD event-driven on the flat store
+              P2PHandel, HandelEth2, SanFermin and SanFerminCappos,
+              per-ms on the time wheel; PingPong, Dfinity, Paxos, Slush
+              and Snowflake on the event-driven path; CasperIMD,
+              P2PFlood and OptimisticP2PSignature event-driven on the
+              flat store
   interop.py  carry a JAX-package state into the port and back
 """
 

@@ -1,9 +1,10 @@
 """Network latency models, vectorized over the replica axis.
 
-Reference semantics: core NetworkLatency.java.  The port keeps three
+Reference semantics: core NetworkLatency.java.  The port keeps six
 models: the default `NetworkLatencyByDistanceWJitter` with its exact
-host table, `AwsRegionNetworkLatency` (the AWS-region ping matrix) and
-`IC3NetworkLatency` (area quantiles of the distance), with the shared
+host table, `AwsRegionNetworkLatency` (the AWS-region ping matrix),
+`IC3NetworkLatency` (area quantiles of the distance), and the fixed,
+uniform and no-latency models, with the shared
 `vec_latency` wrapper (NetworkLatency.getLatency,
 NetworkLatency.java:27-34) and the toroidal distance with its
 integer-sqrt snap.  All randomness is externalized into `delta` in
@@ -214,3 +215,53 @@ class IC3NetworkLatency(NetworkLatency):
     def ext_vec(self, static, from_idx, to_idx, delta):
         table = _on_device("ic3", self._table(), static.x.device)
         return table[_dist_vec(static, from_idx, to_idx).to(torch.int64)]
+
+
+class NetworkFixedLatency(NetworkLatency):
+    """The same latency for every pair, at least 1 ms
+    (NetworkLatency.java, NetworkFixedLatency)."""
+
+    def __init__(self, fixed_latency: int):
+        self.fixed_latency = max(1, fixed_latency)
+
+    def get_extended_latency(self, from_node, to_node, delta: int) -> int:
+        return self.fixed_latency
+
+    def ext_vec(self, static, from_idx, to_idx, delta):
+        return torch.full(from_idx.shape, self.fixed_latency, dtype=torch.int32,
+                          device=from_idx.device)
+
+    def __str__(self):
+        return f"fixedLatency:{self.fixed_latency}"
+
+
+class NetworkUniformLatency(NetworkLatency):
+    """`(int)((delta / 99.0) * max)`: uniform over [0, max]
+    (NetworkLatency.java, NetworkUniformLatency).  The JAX form computes it in float32,
+    so the vectorized form reads a host table of the 100 float32 results,
+    the same on every device (no reciprocal rewrite of the division)."""
+
+    def __init__(self, max_latency: int):
+        self.max_latency = max(1, max_latency)
+        d = np.arange(100, dtype=np.float32)
+        self._table = ((d / np.float32(99.0)) * np.float32(self.max_latency)).astype(np.int32)
+
+    def get_extended_latency(self, from_node, to_node, delta: int) -> int:
+        return jint((delta / 99.0) * self.max_latency)
+
+    def ext_vec(self, static, from_idx, to_idx, delta):
+        table = _on_device(f"uniform{self.max_latency}", self._table, from_idx.device)
+        return table[delta.to(torch.int64)]
+
+    def __str__(self):
+        return f"NetworkUniformLatency:{self.max_latency}"
+
+
+class NetworkNoLatency(NetworkLatency):
+    """1 ms for every pair (NetworkLatency.java, NetworkNoLatency)."""
+
+    def get_extended_latency(self, from_node, to_node, delta: int) -> int:
+        return 1
+
+    def ext_vec(self, static, from_idx, to_idx, delta):
+        return torch.ones(from_idx.shape, dtype=torch.int32, device=from_idx.device)

@@ -3,10 +3,12 @@
 Reference semantics: core RegistryNodeBuilders.java and
 RegistryNetworkLatencies.java.  The port registers the defaults
 (`node_builder_name=None`, `network_latency_name=None`), the AWS builder
-`builder_name("AWS", True, 0.0)`, and the `AwsRegionNetworkLatency` and
-`IC3NetworkLatency` models; any other name raises, so a configuration
-the port cannot yet reproduce fails loudly instead of running another
-model.
+`builder_name("AWS", True, 0.0)`, the `AwsRegionNetworkLatency`,
+`IC3NetworkLatency` and `NetworkNoLatency` models, and the fixed and
+uniform models the JAX package pre-registers (`name(FIXED, f)` and
+`name(UNIFORM, f)` for f in 0..8000); any other name raises, so a
+configuration the port cannot yet reproduce fails loudly instead of
+running another model.
 """
 
 from __future__ import annotations
@@ -17,8 +19,11 @@ from .geo import GeoAWS
 from .latency import (
     AwsRegionNetworkLatency,
     IC3NetworkLatency,
+    NetworkFixedLatency,
     NetworkLatency,
     NetworkLatencyByDistanceWJitter,
+    NetworkNoLatency,
+    NetworkUniformLatency,
 )
 from .node import NodeBuilder, NodeBuilderWithCity, NodeBuilderWithRandomPosition
 
@@ -29,6 +34,7 @@ LATENCY_CLASSES = {
     DEFAULT_LATENCY: NetworkLatencyByDistanceWJitter,
     "AwsRegionNetworkLatency": AwsRegionNetworkLatency,
     "IC3NetworkLatency": IC3NetworkLatency,
+    "NetworkNoLatency": NetworkNoLatency,
 }
 
 
@@ -60,13 +66,32 @@ class RegistryNodeBuilders:
 
 
 class RegistryNetworkLatencies:
+    FIXED = "FIXED"
+    UNIFORM = "UNIFORM"
+    # the values RegistryNetworkLatencies.java pre-registers for both
+    PRESET = (0, 100, 200, 500, 1000, 2000, 4000, 8000)
+
+    @staticmethod
+    def name(type_: str, fixed: int) -> str:
+        if type_ == RegistryNetworkLatencies.FIXED:
+            return f"NetworkFixedLatency({fixed})"
+        if type_ == RegistryNetworkLatencies.UNIFORM:
+            return f"NetworkUniformLatency({fixed})"
+        raise ValueError(type_)
+
     def get_by_name(self, name: Optional[str]) -> NetworkLatency:
         if name is None:
             name = DEFAULT_LATENCY
+        for f in self.PRESET:
+            if name == self.name(self.FIXED, f):
+                return NetworkFixedLatency(f)
+            if name == self.name(self.UNIFORM, f):
+                return NetworkUniformLatency(f)
         cls = LATENCY_CLASSES.get(name)
         if cls is None:
             raise NotImplementedError(
-                f"latency model {name!r} is not ported; only {sorted(LATENCY_CLASSES)}"
+                f"latency model {name!r} is not ported; only {sorted(LATENCY_CLASSES)} "
+                f"and the fixed and uniform models at {self.PRESET}"
             )
         return cls()
 

@@ -44,7 +44,7 @@ import torch
 
 from ..core.latency import LatencyStatic, NetworkLatency, vec_latency
 from ..ops.bitops import lowest_set_bit, pack_occupied, popcount_words
-from ..ops.indexing import add_at, set_rows, take
+from ..ops.indexing import add_at, add_masked, set_rows, take
 from .density import lane_plan
 from .rng import hash32, pseudo_delta
 
@@ -618,11 +618,10 @@ class BatchedNetwork:
         vview, due, deliver, rows = self.delivery_view(state, t)
         view_to, view_type = vview.msg_to, vview.msg_type
         sizes = self._msg_sizes[view_type.to(torch.int64)]
-        dm = (deliver & (sizes > 0)).to(torch.int32)
-        vstate = vview._replace(
-            msg_received=add_at(state.msg_received, view_to, dm),
-            bytes_received=add_at(state.bytes_received, view_to, dm * sizes),
-        )
+        dm = deliver & (sizes > 0)
+        received, bytes_received = add_masked((state.msg_received, state.bytes_received),
+                                              view_to, (dm.to(torch.int32), sizes), dm)
+        vstate = vview._replace(msg_received=received, bytes_received=bytes_received)
         pstate, emissions = self.protocol.deliver(self, vstate, deliver, t)
         return self._clear_visited_rows(pstate, state, rows, due), emissions
 

@@ -9,7 +9,10 @@ does the reverse, giving back uint32 for the leaves the JAX package
 carries as words.  Which leaves those are is the protocol's to say: each
 batched protocol lists them in `WORD_LEAVES` (a name may be a
 protocol's word in one protocol and a count in another, as `agg` is in
-Handel and SanFermin).  With the two, both packages can start from one
+Handel and SanFermin).  Slush, Snowflake, P2PFlood,
+OptimisticP2PSignature and SanFerminCappos carry only bool and int32
+leaves, so they declare no `WORD_LEAVES` (nor `PROTO_KEYS`), as PingPong,
+Dfinity, Casper and Paxos do not.  With the two, both packages can start from one
 state and be compared leaf by leaf.  This module imports nothing of JAX.
 """
 
@@ -26,18 +29,24 @@ from .engine.core import SimState
 def ported_protocols() -> tuple:
     """The port's batched protocol classes (imported here, not at module
     load: they import the engine, as this module does)."""
+    from .protocols.avalanche_batched import BatchedAvalanche
     from .protocols.casper_batched import BatchedCasper
     from .protocols.dfinity_batched import BatchedDfinity
     from .protocols.gsf_batched import BatchedGSF
     from .protocols.handel_batched import BatchedHandel
     from .protocols.handeleth2_batched import BatchedHandelEth2
+    from .protocols.optimistic_p2p_signature_batched import BatchedOptimisticP2PSignature
+    from .protocols.p2pflood_batched import BatchedP2PFlood
     from .protocols.p2phandel_batched import BatchedP2PHandel
     from .protocols.paxos_batched import BatchedPaxos
     from .protocols.pingpong_batched import BatchedPingPong
     from .protocols.sanfermin_batched import BatchedSanFermin
+    from .protocols.sanfermin_cappos_batched import BatchedSanFerminCappos
 
     return (BatchedHandel, BatchedGSF, BatchedP2PHandel, BatchedPingPong, BatchedDfinity,
-            BatchedHandelEth2, BatchedSanFermin, BatchedCasper, BatchedPaxos)
+            BatchedHandelEth2, BatchedSanFermin, BatchedCasper, BatchedPaxos,
+            BatchedAvalanche, BatchedP2PFlood, BatchedOptimisticP2PSignature,
+            BatchedSanFerminCappos)
 
 
 def protocol_of(proto_keys):

@@ -51,18 +51,10 @@ from ..core.registries import registry_network_latencies
 from ..engine.core import BatchedNetwork, Emission, resolve_device
 from ..engine.protocol import BatchedProtocol
 from ..engine.rng import hash32
-from ..ops.indexing import live_rows, take
+from ..ops.indexing import live_rows, put_cells, take
 from .casper import SLOT_DURATION, CasperParameters, casper_roles
 
 VARIANTS = ("wf", "delay", "sf", "ns")
-
-
-def _mark(col: torch.Tensor, cell: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Functional `col.at[cell].max(mask)` for bool col [R, K]: the masked
-    rows write True, the others go to a trash column."""
-    r, k = col.shape
-    ext = torch.cat([col, col.new_zeros(r, 1)], dim=1)
-    return ext.scatter(1, torch.where(mask, cell.to(torch.int64), k), True)[:, :k]
 
 
 def _put(col: torch.Tensor, w: torch.Tensor, vals) -> torch.Tensor:
@@ -299,8 +291,7 @@ class BatchedCasper(BatchedProtocol):
         proto["blk_att"] = _put(proto["blk_att"], w_h, mine)
         # the producer's head becomes its new block immediately (:425-427)
         proto["head"] = torch.where(mask, height, proto["head"])
-        proto["seen"] = _mark(proto["seen"].reshape(r, n * mh),
-                              pid * mh + h.long(), m).view(r, n, mh)
+        proto["seen"] = put_cells(proto["seen"], pid * mh + h.long(), True, m)
 
         # broadcast rows restricted to the (few, static) producer ids
         hs = h.repeat_interleave(n, dim=1)
@@ -372,7 +363,8 @@ class BatchedCasper(BatchedProtocol):
             return live & (mt == self.mtype(name))
 
         def flag(name):  # zeros(n, bool).at[to].max(is_x)
-            return _mark(torch.zeros((r, n), dtype=torch.bool, device=dev), to, m_(name))
+            return put_cells(torch.zeros((r, n), dtype=torch.bool, device=dev), to, True,
+                             m_(name))
 
         is_blk, is_att, is_twfb = m_("BLOCK"), m_("ATT"), m_("TWFB")
         tbp, tatt = flag("TBP"), flag("TATT")
@@ -385,21 +377,19 @@ class BatchedCasper(BatchedProtocol):
         # ---- 1. attestation arrivals (onAttestation, :316-337) ------------
         h0 = torch.clamp(pay0, 0, ma - 1).long()
         ok_att = is_att & torch.gather(proto["att_exists"], 1, h0)
-        proto["rec_att"] = _mark(proto["rec_att"].reshape(r, n * ma), to * ma + h0,
-                                 ok_att).view(r, n, ma)
+        proto["rec_att"] = put_cells(proto["rec_att"], to * ma + h0, True, ok_att)
         # reevaluate the attested head when the block is known: the JAX
         # package's new_att @ one_hot(att_head) product, as a scatter of
         # each delivered attestation's head
         att_cell = to * mh + torch.gather(proto["att_head"], 1, h0).long()
         known = torch.gather(proto["seen"].reshape(r, n * mh), 1, att_cell)
-        proto["reeval"] = _mark(proto["reeval"].reshape(r, n * mh), att_cell,
-                                ok_att & known).view(r, n, mh)
+        proto["reeval"] = put_cells(proto["reeval"], att_cell, True, ok_att & known)
 
         # ---- 2. block arrivals (onBlock, :298-314; slot gate is dead
         # code in the reference — delta sign bug kept verbatim) -------------
         bh = torch.clamp(pay0, 0, mh - 1).long()
-        new_blk = _mark(torch.zeros((r, n * mh), dtype=torch.bool, device=dev),
-                        to * mh + bh, is_blk).view(r, n, mh)
+        new_blk = put_cells(torch.zeros((r, n, mh), dtype=torch.bool, device=dev),
+                            to * mh + bh, True, is_blk)
         new_blk = new_blk & ~proto["seen"] & proto["blk_exists"][:, None, :]
         got_blk = new_blk.any(-1)
 
@@ -407,7 +397,7 @@ class BatchedCasper(BatchedProtocol):
         # for the WF kick-off, which also reads the head): one device read
         wf_th = torch.zeros((r, n), dtype=torch.int32, device=dev).scatter_reduce(
             1, to, torch.where(is_twfb, pay1, 0), reduce="amax", include_self=True)
-        twfb = _mark(torch.zeros((r, n), dtype=torch.bool, device=dev), to, is_twfb)
+        twfb = put_cells(torch.zeros((r, n), dtype=torch.bool, device=dev), to, True, is_twfb)
         acting = tbp | tatt | twf | tbyz
         can_vote = tatt & (1 <= slot_now < mh)
         rows_blk, rows_act, fire_bp, fire_kick, fire_wf, fire_byz, fire_vote = live_rows([
@@ -494,8 +484,8 @@ class BatchedCasper(BatchedProtocol):
             proto["att_exists"] = _put(proto["att_exists"], w_a, True)
             proto["att_head"] = _put(proto["att_head"], w_a, proto["head"])
             # the attester holds its own attestation from the start
-            proto["rec_att"] = _mark(proto["rec_att"].reshape(r, n * ma),
-                                     ids.long() * ma + att_slot_t, can_vote).view(r, n, ma)
+            proto["rec_att"] = put_cells(proto["rec_att"], ids.long() * ma + att_slot_t, True,
+                                         can_vote)
             # committee of this slot shares the tick: [apr x N] rows
             cm = self.committee[(vote_h - 1) % self.cl]
             cm_t = torch.as_tensor(cm, dtype=torch.int32, device=dev)

@@ -43,6 +43,31 @@ from ..utils.more_math import log2
 from .sanfermin import SanFerminSignatureParameters, sanfermin_population
 
 
+def block_size(w: int, cpl):
+    """Candidate-block size at prefix length cpl: 2^(W-cpl-1)."""
+    return (1 << (w - 1 - cpl)).to(torch.int32)
+
+
+def candidate_walk(w: int, seed, ids, cpl):
+    """(bs, x) of node `ids`'s candidate walk at level `cpl`: the block
+    size and the XOR key of its bijection (one hash per node and level,
+    whatever the position)."""
+    bs = block_size(w, cpl)
+    return bs, hash32(seed, ids, cpl, 0x5AFE) & (bs - 1)
+
+
+def walk_partner(ids, walk, position):
+    """The `position`-th candidate of node `ids` on its walk
+    (candidate_walk): position 0 = exact candidate (r=0), then an
+    XOR-bijection walk of the rest of the block.  Returns (partner,
+    valid)."""
+    bs, x = walk
+    q = position - 1
+    p = q + (q >= x).to(torch.int32)  # skip the slot that maps to 0
+    r = torch.where(position == 0, 0, p ^ x)
+    return ids ^ (bs + r), position < bs
+
+
 class BatchedSanFermin(BatchedProtocol):
     MSG_TYPES = ["SWAP_REQ", "SWAP_REP_OK", "SWAP_REP_NO"]
     PAYLOAD_WIDTH = 2  # (level, agg_value)
@@ -77,9 +102,9 @@ class BatchedSanFermin(BatchedProtocol):
         ids = torch.arange(n_nodes, dtype=torch.int32, device=dev)
         cpl0 = torch.full((n_nodes,), w - 1, dtype=torch.int32, device=dev)
         pending = torch.zeros((n_nodes, self.n_words), dtype=torch.int32, device=dev)
-        walk = self._walk(eng_seed, ids, cpl0)
+        walk = candidate_walk(self.w, eng_seed, ids, cpl0)
         for j in range(1 + cc):
-            partner, ok = self._partner(ids, walk, torch.full_like(ids, j))
+            partner, ok = walk_partner(ids, walk, torch.full_like(ids, j))
             pending = torch.where(ok[:, None], pending | self._onehot_words(partner), pending)
 
         def full(v, dtype=torch.int32):
@@ -106,27 +131,6 @@ class BatchedSanFermin(BatchedProtocol):
         }
 
     # -- candidate enumeration ----------------------------------------------
-    def _bs(self, cpl):
-        """Candidate-block size at prefix length cpl: 2^(W-cpl-1)."""
-        return (1 << (self.w - 1 - cpl)).to(torch.int32)
-
-    def _walk(self, seed, ids, cpl):
-        """(bs, x) of node `ids`'s candidate walk at level `cpl`: the block
-        size and the XOR key of its bijection (one hash per node and
-        level, whatever the position)."""
-        bs = self._bs(cpl)
-        return bs, hash32(seed, ids, cpl, 0x5AFE) & (bs - 1)
-
-    def _partner(self, ids, walk, position):
-        """The `position`-th candidate of node `ids` on its walk (_walk):
-        position 0 = exact candidate (r=0), then an XOR-bijection walk of
-        the rest of the block.  Returns (partner, valid)."""
-        bs, x = walk
-        q = position - 1
-        p = q + (q >= x).to(torch.int32)  # skip the slot that maps to 0
-        r = torch.where(position == 0, 0, p ^ x)
-        return ids ^ (bs + r), position < bs
-
     def _onehot_words(self, idx):
         """Absolute-id onehot over the packed [n_words] axis."""
         cols = torch.arange(self.n_words, device=idx.device)
@@ -145,10 +149,10 @@ class BatchedSanFermin(BatchedProtocol):
         ids = torch.arange(n, dtype=torch.int32, device=dev)
         cpl, cursor, agg = proto["cpl"], proto["cursor"], proto["agg"]
         npick = torch.where(entering, 1 + cc, cc).to(torch.int32)
-        walk = self._walk(state.seed[:, None], ids, cpl)
+        walk = candidate_walk(self.w, state.seed[:, None], ids, cpl)
         partners, rows = [], []
         for j in range(k):
-            partner, in_block = self._partner(ids, walk, cursor + j)
+            partner, in_block = walk_partner(ids, walk, cursor + j)
             partners.append(partner)
             rows.append(mask & (j < npick) & in_block)
         m = torch.stack(rows, -1)  # [R, N, k], node-major rows
@@ -351,7 +355,7 @@ class BatchedSanFermin(BatchedProtocol):
 
         # 3. sends: level entry (exact-first) or re-pick (timeout / NO)
         send = (descend | tmo | proto["resend"]) & ~proto["done"]
-        send = send & (proto["cursor"] < self._bs(proto["cpl"]))
+        send = send & (proto["cursor"] < block_size(self.w, proto["cpl"]))
         proto["resend"] = proto["resend"] & ~send
         proto, em = self._send_requests(state, send, descend, proto, t)
         return net.apply_emission(state._replace(proto=proto), em, t)
@@ -360,16 +364,16 @@ class BatchedSanFermin(BatchedProtocol):
         """The pre-applied t=1 goNextLevel's sends: every node contacts its
         exact candidate (+ candidate_count more).  The matching cursor /
         pending / timeout bookkeeping is already baked into proto_init
-        (same seed, same _partner walk), so this only builds the rows."""
+        (same seed, same walk_partner walk), so this only builds the rows."""
         cc = max(1, self.params.candidate_count)
         k = 1 + cc
         r, n = state.down.shape
         ids = torch.arange(n, dtype=torch.int32, device=state.down.device)
         cpl = state.proto["cpl"]
-        walk = self._walk(state.seed[:, None], ids, cpl)
+        walk = candidate_walk(self.w, state.seed[:, None], ids, cpl)
         rows_mask, rows_to = [], []
         for j in range(k):
-            partner, in_block = self._partner(ids, walk, torch.full_like(cpl, j))
+            partner, in_block = walk_partner(ids, walk, torch.full_like(cpl, j))
             rows_mask.append(in_block)
             rows_to.append(partner)
         return [
