@@ -53,7 +53,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 P2PFlood (100 nodes, 3 floods) x 2 x 2001 ms;
                 OptimisticP2PSignature (64 nodes, threshold 56, 10
                 connections) x 2 x 1500 ms; SanFerminCappos (64 nodes,
-                threshold 32, 4 candidates) x 2 x 1500 ms
+                threshold 32, 4 candidates) x 2 x 1500 ms; ENRGossiping's
+                churn configuration (ENR_CHURN: 24 nodes, 31 slots) x 2 x
+                12000 ms, the card's only check of births, exits and
+                capability changes (both exits fire by 10000 ms)
   5. flagship   the Handel main path: make_handel(flagship_params(4096)),
                 replicate_state(R=16), run_ms_batched in 20-ms chunks up to
                 1000 ms with stop_when_done; every live node must finish and
@@ -65,7 +68,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 device time and each hand-written kernel's device time by
                 name, and the profiler's own seconds.  Every profile window
                 below sits inside its run, and its ticks or iterations are
-                left out of the run's wall time
+                left out of the run's wall time.  Every window is read
+                from the raw Kineto events (`_window_events`), which gives
+                the numbers torch's own processing gives at a fraction of
+                its cost; the p2pflood window holds the two readings equal
   7. byzantine  4096 nodes, 1024 down, byzantine_suicide, R=4, 100 ms;
                 lowest_set_bit_andnot must have launched in this run; then
                 lowest_set_bit and lowest_set_bit_andnot are timed on the
@@ -156,21 +162,35 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 replica 0 equal to the JAX package's seed-0 run
                 (CAPPOS_R0); cappos_profile is a 20-tick window over ticks
                 300-319 inside the run.  No hand-written kernel on its path
- 22. phase_seconds  each phase's wall seconds (profiles and checks included)
- 23. launches_by_path  each path's launch count of every form
- 24. kernels    one line listing every ported kernel with its numbers
+ 22. enr        ENRGossiping at the reference main (ENRParameters(), the
+                main's 10-hour horizon: 131 slots), capacity 1 << 12 on the
+                flat store, R = 1024, 60000 ms at a fixed depth (cut from
+                the main's 36000000 ms, hundreds of thousands of
+                iterations; every node is done from t = 0, so
+                stop_when_done would stop at once): nothing dropped; in
+                every replica 51 slots alive and the adjacency symmetric,
+                loop-free and without a link on a dead slot; replica 0
+                equal to the JAX package's seed-0 run (ENR_R0);
+                enr_profile is a 20-iteration window from iteration 100
+                inside the run.  No hand-written kernel on its path
+ 23. phase_seconds  each phase's wall seconds (profiles and checks included)
+ 24. launches_by_path  each path's launch count of every form
+ 25. kernels    one line listing every ported kernel with its numbers
 
 The last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import hashlib
+import itertools
 import json
 import multiprocessing
 import re
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -182,6 +202,8 @@ from wittgenstein_tpu_torch.ops import bitops, kernels
 from wittgenstein_tpu_torch.protocols.casper import CasperParameters
 from wittgenstein_tpu_torch.protocols.casper_batched import make_casper
 from wittgenstein_tpu_torch.protocols.dfinity_batched import make_dfinity
+from wittgenstein_tpu_torch.protocols.enr_batched import make_enr
+from wittgenstein_tpu_torch.protocols.enr_gossiping import ENRParameters
 from wittgenstein_tpu_torch.protocols.gsf import GSFSignatureParameters
 from wittgenstein_tpu_torch.protocols.gsf_batched import BatchedGSF, make_gsf
 from wittgenstein_tpu_torch.protocols.handel import HandelParameters, flagship_params
@@ -329,6 +351,24 @@ CAPPOS_R0 = {"done": 1018, "not_done": [311, 390, 534, 674, 841, 890],
              "done_at_p10_p50_p90": [323.0, 334.0, 346.0], "done_at_min": 313,
              "done_at_max": 358, "thr_done": 1018, "thr_at_p10_p50_p90": [308.0, 320.0, 332.0],
              "msg_received": 402698, "msg_sent": 402698, "cpl": 47}
+# ENRGossiping at the reference main (enr_gossiping.py's main: cap_search
+# over 10 hours, so 131 slots), on the flat store; 60000 ms reach the first
+# broadcasts and their floods, link growth to max_peers 50 and the swap
+# path (the first birth after t = 0 falls at 450000 ms)
+ENR_REPLICAS = 1024
+ENR_MS = 60_000
+ENR_HORIZON = 36_000_000
+ENR_CAPACITY = 1 << 12
+# the JAX package's seed-0 run at 60000 ms (the same at capacity 1 << 13)
+ENR_R0 = {"alive": 51, "adj_cells": 1054, "max_degree": 50, "min_alive_degree": 12,
+          "id_weighted_degree": 27129, "adj_md5_12": "825afaaddcbd", "records": 9,
+          "seen_cells": 459, "seen_max": 0, "msg_received": 5498, "msg_sent": 5498,
+          "pending": 293, "done_at_sum": 51, "last_t": 56248, "bcast_next_min": 61528}
+# a churn configuration for the identity case: births every 2000 ms,
+# exits at 8560 and 9469, capability changes at 3051 and 5873
+ENR_CHURN = dict(nodes=24, total_peers=4, max_peers=6, number_of_different_capabilities=5,
+                 cap_per_node=2, cap_gossip_time=3000, time_to_leave=16000,
+                 time_to_change=6000, changing_nodes=1, discard_time=100)
 
 
 def emit(obj) -> None:
@@ -1031,6 +1071,8 @@ def _leaf_diff(a: dict, b: dict) -> list:
 # Longest first (their CUDA sides took 15-23 s each on an H100 80GB HBM3
 # at 700 W), so that the worker pools finish together
 IDENTITY = {
+    "enr": (lambda dev: make_enr(ENRParameters(**ENR_CHURN), horizon_ms=12_000, capacity=1024,
+                                 device=dev), 12000, 12000),
     "sanfermin": (lambda dev: make_sanfermin(sf_params(64), device=dev), 1500, 500),
     "cappos": (lambda dev: make_sanfermin_cappos(SanFerminParameters(64, 32, 2, 48, 150, 4),
                                                  device=dev), 1500, 500),
@@ -1348,10 +1390,162 @@ def dfinity() -> dict:
     return out
 
 
+class _Kern(NamedTuple):
+    """A device event of a profile window: its name and device us."""
+
+    name: str
+    device_time: float
+
+
+class _CpuEv:
+    """A CPU event of a profile window, as torch's processing nests it."""
+
+    __slots__ = ("name", "start", "end", "thread", "async_", "kernels", "children", "parent",
+                 "total")
+
+    def __init__(self, name, start, end, thread, async_):
+        self.name, self.start, self.end, self.thread = name, start, end, thread
+        self.async_, self.kernels, self.children, self.parent = async_, [], [], None
+        self.total = None
+
+    def device_total(self) -> float:
+        """device_time_total: own kernels, then the children's, summed as
+        torch sums them."""
+        if self.total is None:
+            self.total = (0 if self.async_ else sum(self.kernels)
+                          + sum(ch.device_total() for ch in self.children))
+        return self.total
+
+
+def _window_events(prof):
+    """A profile window's device events (`_Kern`, in torch's event order)
+    and each aten op's [calls, self device us] by name, in first-seen
+    order: what prof.events() and prof.key_averages() give — the same
+    filtered names, kernels linked to the op that launched them, the same
+    nesting per thread, the same merge of a lone same-name child into its
+    parent, the same float sums in the same order — read from the raw
+    Kineto events without building torch's per-event Python objects,
+    whose processing took 164.8 s of a 753-s run of this script (H100
+    80GB HBM3 at 700 W).  The p2pflood window holds the two readings
+    equal in every run."""
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import _filter_name
+
+    res = prof.profiler.kineto_results
+    t0 = res.trace_start_ns()
+    names = {}
+
+    def rename(raw: str) -> str:  # torch's StringTable: demangled
+        if raw not in names:
+            names[raw] = torch._C._demangle(raw) if len(raw) > 1 else raw
+        return names[raw]
+
+    evs, frontend, linked = [], [], {}
+    for k in res.events():
+        raw = k.name()
+        if _filter_name(raw) or getattr(k, "is_hidden_event", lambda: False)():
+            continue
+        start, end = (k.start_ns() - t0) / 1000, (k.end_ns() - t0) / 1000
+        dev = k.device_type()
+        if dev == DeviceType.CPU:
+            ev = _CpuEv(rename(raw), start, end, k.start_thread_id(),
+                        k.is_async() or k.start_thread_id() != k.end_thread_id())
+        elif dev == DeviceType.CUDA:
+            ev = _Kern(rename(raw), end - start)
+        else:
+            ev = None
+        evs.append((start, -end, ev))
+        corr = k.linked_correlation_id()
+        if corr > 0:
+            linked.setdefault(corr, []).append(ev)
+        elif corr == 0 and isinstance(ev, _CpuEv):
+            frontend.append((k.correlation_id(), ev))
+    for cid, ev in frontend:
+        if not ev.async_:
+            for f in linked.get(cid, ()):
+                if isinstance(f, _Kern):
+                    ev.kernels.append(f.device_time)
+                elif isinstance(f, _CpuEv):
+                    f.thread = ev.thread
+    evs.sort(key=lambda e: (e[0], e[1]))
+    order = [e[2] for e in evs if e[2] is not None]
+    cpu = [e for e in order if isinstance(e, _CpuEv)]
+    # nesting: per thread, by (start, -end), a stack of open parents
+    for _, group in itertools.groupby(sorted((e for e in cpu if not e.async_),
+                                             key=lambda e: e.thread), key=lambda e: e.thread):
+        stack = []
+        for ev in group:
+            while stack:
+                parent = stack[-1]
+                if ev.start >= parent.end or ev.end > parent.end:
+                    stack.pop()
+                else:
+                    parent.children.append(ev)
+                    ev.parent = parent
+                    break
+            stack.append(ev)
+    # a lone child of its parent's name merges into it (kernels lifted)
+    while True:
+        gone = set()
+        for i, ev in enumerate(cpu):
+            p = ev.parent
+            if p is not None and p.name == ev.name and len(p.children) == 1:
+                p.children, p.kernels = ev.children, ev.kernels
+                for ch in ev.children:
+                    ch.parent = p
+                gone.add(i)
+        if not gone:
+            break
+        cpu = [ev for i, ev in enumerate(cpu) if i not in gone]
+    ops = {}
+    for ev in cpu:
+        if ev.name.startswith("aten::"):
+            row = ops.setdefault(ev.name, [0, 0])
+            row[0] += 1
+            if not ev.async_:
+                row[1] += ev.device_total() - sum(ch.device_total() for ch in ev.children)
+    return [e for e in order if isinstance(e, _Kern)], ops
+
+
+def _torch_window_events(prof):
+    """The same reading through torch's own processing (prof.events(),
+    prof.key_averages()), for the cross-check."""
+    from torch.autograd import DeviceType
+
+    kern = [_Kern(e.name, e.device_time) for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
+    ops = {e.key: [e.count, e.self_device_time_total] for e in prof.key_averages()
+           if e.key.startswith("aten::")}
+    return kern, ops
+
+
+def _check_reading(prof, phase: str) -> float:
+    """Hold a window's raw-event reading equal to torch's own; returns the
+    seconds torch's reading took."""
+    t0 = time.perf_counter()
+    want = _torch_window_events(prof)
+    torch_s = time.perf_counter() - t0
+    kern, ops = _window_events(prof)
+    if (kern, ops) != want:
+        bad = sorted(k for k in set(ops) | set(want[1]) if ops.get(k) != want[1].get(k))
+        raise AssertionError(f"{phase}: the raw-event reading differs from torch's: "
+                             f"{len(kern)} vs {len(want[0])} device events, ops {bad[:8]}")
+    return torch_s
+
+
+def _window_reading(prof, phase: str):
+    """(kern, the aten ops sorted by self device time, most first) of a
+    window."""
+    kern, ops = _window_events(prof)
+    if not kern:
+        raise AssertionError(f"{phase}: the profiler recorded no device activity")
+    top = sorted(ops.items(), key=lambda kv: kv[1][1], reverse=True)
+    return kern, top
+
+
 def _profile_ticks(net, states, ticks: int, phase: str, stop_when_done: bool = False):
     """A torch.profiler window of `ticks` ticks inside a lockstep run;
     returns (states, the window's numbers)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     t0 = int(states.time.reshape(-1)[0])
@@ -1361,11 +1555,7 @@ def _profile_ticks(net, states, ticks: int, phase: str, stop_when_done: bool = F
         states = net.run_ms_batched(states, ticks, stop_when_done)
         torch.cuda.synchronize()
         t_close = time.perf_counter()
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not kern:
-        raise AssertionError(f"{phase}: the profiler recorded no device activity")
-    ops = [e for e in prof.key_averages() if e.key.startswith("aten::")]
-    ops.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    kern, ops = _window_reading(prof, phase)
     return states, {
         # the profiler's own seconds from the window's close to its numbers
         "profiler_s": time.perf_counter() - t_close,
@@ -1376,9 +1566,8 @@ def _profile_ticks(net, states, ticks: int, phase: str, stop_when_done: bool = F
         "hand_kernels_per_tick": device_ms_by_kernel(kern, ticks),
         "popcount_forms_per_tick": forms_by_kernel(kern, ticks),
         "top_ops": [
-            {"op": e.key, "calls_per_tick": e.count / ticks,
-             "device_ms_per_tick": e.self_device_time_total / 1e3 / ticks}
-            for e in ops[:10]
+            {"op": op, "calls_per_tick": calls / ticks, "device_ms_per_tick": dev / 1e3 / ticks}
+            for op, (calls, dev) in ops[:10]
         ],
     }
 
@@ -1499,13 +1688,7 @@ def _iteration_window(prof, phase: str, start: int, per: int) -> dict:
     """A profiled window of `per` loop iterations from iteration `start`,
     per iteration: kernels, device ms, the hand-written kernels and the
     ops that take the device time."""
-    from torch.autograd import DeviceType
-
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not kern:
-        raise AssertionError(f"{phase}: the profiler recorded no device activity")
-    ops = [e for e in prof.key_averages() if e.key.startswith("aten::")]
-    ops.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    kern, ops = _window_reading(prof, phase)
     return {
         "phase": phase,
         "window_iterations": [start, start + per],
@@ -1513,21 +1696,22 @@ def _iteration_window(prof, phase: str, start: int, per: int) -> dict:
         "device_ms_per_iteration": sum(e.device_time for e in kern) / 1e3 / per,
         "hand_kernels_per_iteration": device_ms_by_kernel(kern, per),
         "top_ops": [
-            {"op": e.key, "calls_per_iteration": e.count / per,
-             "device_ms_per_iteration": e.self_device_time_total / 1e3 / per}
-            for e in ops[:12]
+            {"op": op, "calls_per_iteration": calls / per,
+             "device_ms_per_iteration": dev / 1e3 / per}
+            for op, (calls, dev) in ops[:12]
         ],
     }
 
 
 def _windowed_jumps(net, states, ms: int, stop_when_done: bool, phase: str,
-                    start: int = PROFILE_FROM, per: int = PROFILE_TICKS):
+                    start: int = PROFILE_FROM, per: int = PROFILE_TICKS, check: bool = False):
     """An event-driven run as a user drives it (run_ms_batched), with the
     launch counts zeroed just before and read just after, and a `per`-
     iteration torch.profiler window from iteration `start` inside it.  The
     window's iterations are left out of the wall time, which is the rest's
-    scaled to the whole run.  Returns (states, wall seconds, launches,
-    window)."""
+    scaled to the whole run.  With `check`, the window's reading is held
+    equal to torch's own (`torch_reading_s` its seconds).  Returns
+    (states, wall seconds, launches, window)."""
     from torch.profiler import ProfilerActivity, profile
 
     step, done, window_s, close_s = net._step_jump, [0], [0.0], [0.0]
@@ -1560,6 +1744,8 @@ def _windowed_jumps(net, states, ms: int, stop_when_done: bool, phase: str,
     window = _iteration_window(prof, phase, start, per)
     # the profiler's own seconds from the window's close to its numbers
     window["profiler_s"] = close_s[0] + time.perf_counter() - t_parse
+    if check:
+        window["torch_reading_s"] = _check_reading(prof, phase)
     it = net.jump_stats["iterations"]
     wall = (wall - window_s[0]) * it / (it - per)
     window["device_busy_share"] = window["device_ms_per_iteration"] / (wall / it * 1e3)
@@ -1638,7 +1824,7 @@ def p2pflood() -> dict:
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t_build
     states, wall, launches, window = _windowed_jumps(net, states, FLOOD_MS, True,
-                                                            "p2pflood_profile")
+                                                     "p2pflood_profile", check=True)
     out = _jump_row("p2pflood", net, FLOOD_REPLICAS, build_s, wall, launches, window, states)
     done, down = states.done_at.cpu().numpy(), states.down.cpu().numpy()
     d0 = done[0][~down[0]]
@@ -1733,6 +1919,62 @@ def cappos() -> dict:
     if out["dropped"]:
         raise AssertionError(f"cappos: {out['dropped']} messages dropped")
     _check_replica0("cappos", r0, CAPPOS_R0)
+    return out
+
+
+def enr_replica0(states) -> dict:
+    """Replica 0's state in the numbers of the JAX package's seed-0 run."""
+    p = {k: v[0].cpu().numpy() for k, v in states.proto.items()}
+    adj, alive = p["adj"], p["alive"]
+    deg = adj.sum(1)
+    return {"alive": int(alive.sum()), "adj_cells": int(adj.sum()), "max_degree": int(deg.max()),
+            "min_alive_degree": int(deg[alive].min()),
+            "id_weighted_degree": int((np.arange(deg.size) * deg).sum()),
+            "adj_md5_12": hashlib.md5(adj.astype(np.uint8).tobytes()).hexdigest()[:12],
+            "records": int(p["records"].sum()), "seen_cells": int((p["seen"] >= 0).sum()),
+            "seen_max": int(p["seen"].max()),
+            "msg_received": int(states.msg_received[0].sum()),
+            "msg_sent": int(states.msg_sent[0].sum()),
+            "pending": int(states.ovf_valid[0].sum()),
+            "done_at_sum": int(states.done_at[0].sum()), "last_t": int(p["last_t"]),
+            "bcast_next_min": int(p["bcast_next"].min())}
+
+
+def enr() -> dict:
+    """ENRGossiping at the reference main (131 slots), capacity
+    ENR_CAPACITY on the flat store, R = ENR_REPLICAS, ENR_MS at a fixed
+    depth, with enr_profile inside the run: nothing dropped, every
+    replica's adjacency symmetric, loop-free and on alive slots only with
+    51 slots alive, replica 0 equal to the JAX package's seed-0 run.  Its
+    path calls no hand-written kernel."""
+    t_build = time.perf_counter()
+    net, state = make_enr(ENRParameters(), horizon_ms=ENR_HORIZON, capacity=ENR_CAPACITY)
+    states = replicate_state(state, ENR_REPLICAS)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_build
+    states, wall, launches, window = _windowed_jumps(net, states, ENR_MS, False, "enr_profile")
+    out = _jump_row("enr", net, ENR_REPLICAS, build_s, wall, launches, window, states)
+    p = states.proto
+    adj, alive = p["adj"], p["alive"]
+    r0 = enr_replica0(states)
+    out.update({"ms": ENR_MS, "replica0": r0,
+                "adj_cells_p10_p50_p90": _percentiles(adj.sum((1, 2)).cpu().numpy()),
+                "records_p10_p50_p90": _percentiles(p["records"].sum(-1).cpu().numpy()),
+                "msg_received_p10_p50_p90": _percentiles(
+                    states.msg_received.sum(-1).cpu().numpy())})
+    emit(out)
+    emit(window)
+    if out["dropped"]:
+        raise AssertionError(f"enr: {out['dropped']} messages dropped")
+    if not bool((adj == adj.transpose(1, 2)).all()):
+        raise AssertionError("enr: an adjacency is not symmetric")
+    if bool(adj.diagonal(dim1=1, dim2=2).any()) or bool((adj.any(-1) & ~alive).any()):
+        raise AssertionError("enr: a self-loop or a link on a dead slot")
+    if not bool((alive.sum(-1) == 51).all()):
+        raise AssertionError(f"enr: alive slots {alive.sum(-1).unique().tolist()}, not 51")
+    if any(launches.values()):
+        raise AssertionError(f"enr: the flat-store path launched kernels: {launches}")
+    _check_replica0("enr", r0, ENR_R0)
     return out
 
 
@@ -1856,7 +2098,7 @@ def paxos() -> dict:
 
 PHASES = ("kernels", "identity", "flagship", "byzantine", "pingpong", "dfinity", "gsf",
           "p2phandel", "handeleth2", "sanfermin", "casper", "paxos", "slush", "snowflake",
-          "p2pflood", "optimistic", "cappos")
+          "p2pflood", "optimistic", "cappos", "enr")
 
 
 def main(argv) -> int:
@@ -1914,7 +2156,7 @@ def main(argv) -> int:
     for path, run in (("handeleth2", handeleth2), ("sanfermin", sanfermin), ("casper", casper),
                       ("paxos", paxos), ("slush", lambda: avalanche("slush")),
                       ("snowflake", lambda: avalanche("snowflake")), ("p2pflood", p2pflood),
-                      ("optimistic", optimistic), ("cappos", cappos)):
+                      ("optimistic", optimistic), ("cappos", cappos), ("enr", enr)):
         if want(path):
             runs[path] = run()
             lap(path)
@@ -1947,7 +2189,7 @@ def main(argv) -> int:
         keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms")
         # beside the main path's count, each path's own (HandelEth2's,
-        # SanFermin's, Casper's — none — and Paxos's among them)
+        # SanFermin's, Casper's — none — Paxos's and ENR's — none — among them)
         emit({"kernels": [
             {**{k: r[k] for k in keys},
              "launches_by_path": {path: out["launches"][r["name"]] for path, out in runs.items()}}

@@ -21,6 +21,7 @@ from wittgenstein_tpu_torch.engine import BatchedNetwork, BatchedProtocol
 from wittgenstein_tpu_torch.protocols.handel import HandelParameters, flagship_params
 from wittgenstein_tpu_torch.protocols.casper_batched import make_casper
 from wittgenstein_tpu_torch.protocols.dfinity_batched import make_dfinity
+from wittgenstein_tpu_torch.protocols.enr_batched import make_enr
 from wittgenstein_tpu_torch.protocols.gsf import GSFSignatureParameters
 from wittgenstein_tpu_torch.protocols.gsf_batched import make_gsf
 from wittgenstein_tpu_torch.protocols.handeleth2 import HandelEth2Parameters
@@ -99,7 +100,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         BatchedNetwork(BatchedHandel(params), registry_network_latencies.get_by_name(None), 64)
     for make in (make_pingpong, make_dfinity, make_casper, make_paxos, make_slush,
-                 make_snowflake, make_p2pflood):
+                 make_snowflake, make_p2pflood, make_enr):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     # asking for the CPU is the one way to run without a card

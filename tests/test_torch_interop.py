@@ -8,7 +8,8 @@ round trip must give back the JAX state exactly — name, dtype, shape and
 bits — including SanFermin's int32 `agg` (a word in Handel), HandelEth2's
 uint32 words, P2PHandel's bool `ver_sig` (a word in Handel and GSF), and
 the states of CasperIMD, Paxos, Slush, Snowflake, P2PFlood,
-OptimisticP2PSignature and SanFerminCappos, which hold no words.
+OptimisticP2PSignature, SanFerminCappos and ENRGossiping (its 0-d
+`last_t` included), which hold no words.
 """
 
 import jax
@@ -18,6 +19,8 @@ import pytest
 from wittgenstein_tpu.protocols.casper import CasperParameters
 from wittgenstein_tpu.protocols.casper_batched import make_casper as jcasper
 from wittgenstein_tpu.protocols.dfinity_batched import make_dfinity as jdfinity
+from wittgenstein_tpu.protocols.enr_batched import make_enr as jenr
+from wittgenstein_tpu.protocols.enr_gossiping import ENRParameters
 from wittgenstein_tpu.protocols.gsf import GSFSignatureParameters
 from wittgenstein_tpu.protocols.gsf_batched import make_gsf as jgsf
 from wittgenstein_tpu.protocols.handel import HandelParameters
@@ -76,6 +79,8 @@ BUILDS = {
     "optimistic": (lambda: jopt(OptimisticP2PSignatureParameters(64, 56, 10, 1)), None, set()),
     "sanfermin_cappos": (lambda: jcappos(SanFerminParameters(64, 32, 2, 48, 150, 4)), None,
                          set()),
+    # bool and int32 leaves, with the 0-d clock last_t
+    "enr": (lambda: jenr(ENRParameters(), horizon_ms=4_000_000), None, set()),
 }
 
 
@@ -107,6 +112,8 @@ def test_round_trip_keeps_jax_dtypes(name):
             assert got[f].dtype == w.dtype and np.array_equal(got[f], w), f"{name}: {f}"
     # every word leaf is an int32 bit view inside the port
     assert all(str(ts.proto[k].dtype) == "torch.int32" for k in words)
+    if name == "enr":  # a single state's clock of the last step is 0-d
+        assert got["proto"]["last_t"].shape == () and got["proto"]["last_t"] == -1
 
 
 def test_every_ported_protocol_declares_its_state():
@@ -114,7 +121,7 @@ def test_every_ported_protocol_declares_its_state():
     identify its state, and no two protocols' keys identify the same
     state; a protocol without words declares no keys."""
     classes = ported_protocols()
-    assert len(classes) == 13
+    assert len(classes) == 14
     assert sum(bool(c.WORD_LEAVES) for c in classes) == 4  # Handel, GSF, HandelEth2, SanFermin
     for cls in classes:
         assert bool(cls.PROTO_KEYS) == bool(cls.WORD_LEAVES), cls.__name__

@@ -18,6 +18,7 @@ Entry points (`protocols.handel_batched.make_handel`,
 `protocols.p2pflood_batched.make_p2pflood`,
 `protocols.optimistic_p2p_signature_batched.make_optimistic`,
 `protocols.sanfermin_cappos_batched.make_sanfermin_cappos`,
+`protocols.enr_batched.make_enr`,
 `engine.core.BatchedNetwork`)
 run on CUDA unless the caller passes `device="cpu"`; without a card they
 raise instead of falling back.  On a
@@ -38,8 +39,8 @@ find:
               P2PHandel, HandelEth2, SanFermin and SanFerminCappos,
               per-ms on the time wheel; PingPong, Dfinity, Paxos, Slush
               and Snowflake on the event-driven path; CasperIMD,
-              P2PFlood and OptimisticP2PSignature event-driven on the
-              flat store
+              P2PFlood, OptimisticP2PSignature and ENRGossiping
+              event-driven on the flat store
   interop.py  carry a JAX-package state into the port and back
 """
 

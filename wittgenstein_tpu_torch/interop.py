@@ -10,9 +10,10 @@ carries as words.  Which leaves those are is the protocol's to say: each
 batched protocol lists them in `WORD_LEAVES` (a name may be a
 protocol's word in one protocol and a count in another, as `agg` is in
 Handel and SanFermin).  Slush, Snowflake, P2PFlood,
-OptimisticP2PSignature and SanFerminCappos carry only bool and int32
-leaves, so they declare no `WORD_LEAVES` (nor `PROTO_KEYS`), as PingPong,
-Dfinity, Casper and Paxos do not.  With the two, both packages can start from one
+OptimisticP2PSignature, SanFerminCappos and ENRGossiping carry only bool
+and int32 leaves (ENR's per-replica clock `last_t` among them), so they
+declare no `WORD_LEAVES` (nor `PROTO_KEYS`), as PingPong, Dfinity, Casper
+and Paxos do not.  With the two, both packages can start from one
 state and be compared leaf by leaf.  This module imports nothing of JAX.
 """
 
@@ -32,6 +33,7 @@ def ported_protocols() -> tuple:
     from .protocols.avalanche_batched import BatchedAvalanche
     from .protocols.casper_batched import BatchedCasper
     from .protocols.dfinity_batched import BatchedDfinity
+    from .protocols.enr_batched import BatchedENR
     from .protocols.gsf_batched import BatchedGSF
     from .protocols.handel_batched import BatchedHandel
     from .protocols.handeleth2_batched import BatchedHandelEth2
@@ -46,7 +48,7 @@ def ported_protocols() -> tuple:
     return (BatchedHandel, BatchedGSF, BatchedP2PHandel, BatchedPingPong, BatchedDfinity,
             BatchedHandelEth2, BatchedSanFermin, BatchedCasper, BatchedPaxos,
             BatchedAvalanche, BatchedP2PFlood, BatchedOptimisticP2PSignature,
-            BatchedSanFerminCappos)
+            BatchedSanFerminCappos, BatchedENR)
 
 
 def protocol_of(proto_keys):
