@@ -56,7 +56,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 threshold 32, 4 candidates) x 2 x 1500 ms; ENRGossiping's
                 churn configuration (ENR_CHURN: 24 nodes, 31 slots) x 2 x
                 12000 ms, the card's only check of births, exits and
-                capability changes (both exits fire by 10000 ms)
+                capability changes (both exits fire by 10000 ms); and
+                (IDENTITY_RUNS) ETHPoW's four strategies at 10 miners x 2
+                x 600000 ms through the event loop, 20 BatchedMinerEnv
+                steps of 1000 ms, PingPong at 64 nodes x 2 x 300 ms under
+                every fault lane (all_lanes_plan) and the flagship-shaped
+                Handel at 64 nodes x 2 x 300 ms under a silence bloc
   5. flagship   the Handel main path: make_handel(flagship_params(4096)),
                 replicate_state(R=16), run_ms_batched in 20-ms chunks up to
                 1000 ms with stop_when_done; every live node must finish and
@@ -83,19 +88,28 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 and popcount_words must have launched in this run
   9. pp_profile a 20-iteration window from iteration 100 of the PingPong
                 run, with pack_occupied's device time
- 10. dfinity    make_dfinity(max_heights=64), R=1024, 15000 ms: nothing may
+ 10. faults_pingpong  the same PingPong run with its first half of
+                replicas under all_lanes_plan (10% of the nodes crash at
+                100 ms and recover at 400, a two-group partition 50-250
+                ms, 5% drops, 1.5x latency, a silenced and a delayed
+                sender) and the second half neutral, one lower_plans
+                stack: every neutral replica equals the pingpong phase's
+                state for its seed, replica 0 equals the JAX package's
+                seed-0 run (FPP_R0), both fault counters are nonzero, and
+                the occupancy kernels launch; fpp_profile inside the run
+ 11. dfinity    make_dfinity(max_heights=64), R=1024, 15000 ms: nothing may
                 drop, every replica's head height (its highest notarized
                 block) reaches 4, and pack_occupied must have launched
- 11. gsf        GSF at 2048 nodes (BASELINE config 2), R = 32, 1000 ms in
+ 12. gsf        GSF at 2048 nodes (BASELINE config 2), R = 32, 1000 ms in
                 20-ms chunks with stop_when_done: every node must finish,
                 and the popcount family and lowest_set_bit must launch;
                 gsf_profile is ticks 100-109 of its run
- 12. p2phandel  P2PHandel at the reference defaults, R = 1024, 3000 ms on
+ 13. p2phandel  P2PHandel at the reference defaults, R = 1024, 3000 ms on
                 the 512-row wheel (cut from running to done, 6957 ticks):
                 nothing may drop, replica 0 must give the JAX package's
                 seed-0 counters at 3000 ms (P2P_R0), pack_bool_words must
                 launch; p2p_profile is a 20-tick window at ticks 100-119
- 13. handeleth2 HandelEth2 at 256 nodes, R = 64, 2000 ms on the 512-row
+ 14. handeleth2 HandelEth2 at 256 nodes, R = 64, 2000 ms on the 512-row
                 wheel (the height-1001 process completes every level by
                 1000 ms): nothing may drop, every node of every replica
                 must hold 256 incoming contributions, replica 0 must give
@@ -103,7 +117,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 sent), and the popcount forms must launch; eth2_profile is
                 a 20-tick torch.profiler window over ticks 1000-1019 (the
                 beat tick 1001 among them) inside the run
- 14. sanfermin  SanFermin at 4096 nodes (BASELINE config 5 with Dfinity),
+ 15. sanfermin  SanFermin at 4096 nodes (BASELINE config 5 with Dfinity),
                 capacity 1 << 16, R = 1024, 2200 ms (cut from 3000): nothing may drop, and
                 replica 0 must give the JAX package's seed-0 result (4078
                 nodes done, thr_at P10/P50/P90 1044/1260/1580, min 815, max
@@ -111,7 +125,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 20-tick window over ticks 1500-1519 inside the run.  Its
                 path calls no hand-written kernel (the per-ms loop reads no
                 wheel occupancy summary)
- 15. casper     CasperIMD at 1024 validators (BASELINE config 4: 1027
+ 16. casper     CasperIMD at 1024 validators (BASELINE config 4: 1027
                 nodes, cycle_length 4, attesters_per_round 256,
                 max_heights 12), R = 64, 48000 ms on the flat store, once
                 per latency model of the sweep (distance + jitter; AWS
@@ -123,7 +137,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 casper_*_profile is its CASPER_WINDOWS window (iterations
                 100-119 of distance's 2131, 11-20 of AWS's 21, 61-80 of
                 IC3's 81).  Its path calls no hand-written kernel
- 16. paxos      Paxos (3 acceptors, 3 proposers), R = 8192, 5000 ms with
+ 17. paxos      Paxos (3 acceptors, 3 proposers), R = 8192, 5000 ms with
                 stop_when_done on the 512-row wheel (cut from 16384,
                 71.6 s on an H100 at 700 W): no replica's proposers may accept two values,
                 every replica must decide but those the JAX package leaves
@@ -133,7 +147,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 pack_occupied, lowest_set_bit and popcount_words must
                 launch; paxos_profile is a 20-iteration window from
                 iteration 100
- 17. slush      Slush at the reference main (100 nodes, M 5, K 7, alpha
+ 18. slush      Slush at the reference main (100 nodes, M 5, K 7, alpha
                 4/7), R = 4096, 4000 ms with stop_when_done on the 512-row
                 wheel: every node of every replica colored and none
                 querying, nothing dropped, replica 0 equal to the JAX
@@ -141,28 +155,28 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 lowest_set_bit and popcount_words launched in this run;
                 slush_profile is a 20-iteration torch.profiler window from
                 iteration 100 inside the run
- 18. snowflake  the same for Snowflake (B = 3) and snowflake_profile
- 19. p2pflood   P2PFlood at the reference defaults (100 nodes, 10 dead, 10
+ 19. snowflake  the same for Snowflake (B = 3) and snowflake_profile
+ 20. p2pflood   P2PFlood at the reference defaults (100 nodes, 10 dead, 10
                 peers), R = 1024, 5000 ms with stop_when_done on the flat
                 store (capacity 1 << 13): every live node reached, nothing
                 dropped, replica 0 equal to the JAX package's seed-0 run
                 (FLOOD_R0); p2pflood_profile inside the run.  No
                 hand-written kernel on its path
- 20. optimistic OptimisticP2PSignature at the reference's 1000 nodes
+ 21. optimistic OptimisticP2PSignature at the reference's 1000 nodes
                 (threshold 501, 13 connections, pairing time 3), R = 16,
                 1500 ms with stop_when_done on the flat store at capacity
                 1 << 23 (134M slots; 1 << 22 drops): every node of every
                 replica done, nothing dropped, replica 0 equal to the JAX
                 package's seed-0 run (OPT_R0); optimistic_profile inside
                 the run.  No hand-written kernel on its path
- 21. cappos     SanFerminCappos at 1024 nodes (threshold 512, 50
+ 22. cappos     SanFerminCappos at 1024 nodes (threshold 512, 50
                 candidates), R = 64, 1000 ms on the 512-row wheel at
                 capacity 1 << 20 (4096 slots a row; 1 << 19 drops), a fixed
                 depth since six nodes never finish: nothing dropped,
                 replica 0 equal to the JAX package's seed-0 run
                 (CAPPOS_R0); cappos_profile is a 20-tick window over ticks
                 300-319 inside the run.  No hand-written kernel on its path
- 22. enr        ENRGossiping at the reference main (ENRParameters(), the
+ 23. enr        ENRGossiping at the reference main (ENRParameters(), the
                 main's 10-hour horizon: 131 slots), capacity 1 << 12 on the
                 flat store, R = 1024, 60000 ms at a fixed depth (cut from
                 the main's 36000000 ms, hundreds of thousands of
@@ -173,9 +187,35 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 equal to the JAX package's seed-0 run (ENR_R0);
                 enr_profile is a 20-iteration window from iteration 100
                 inside the run.  No hand-written kernel on its path
- 23. phase_seconds  each phase's wall seconds (profiles and checks included)
- 24. launches_by_path  each path's launch count of every form
- 25. kernels    one line listing every ported kernel with its numbers
+ 24. ethpow     ETHPoW at the reference's 10 miners, b_max 512, R = 4096,
+                600000 ms (cut from try_miner's hour: the event loop is
+                host-bound and the hour would not fit the time limit),
+                honest and under ETHSelfishMiner and ETHSelfishMiner2 at
+                45%: nothing overflows, the selfish mean revenue ratio is
+                above 0.5, replica 0 equals the JAX package's seed-0 run
+                (ETH_R0); each config's ethpow_<config>_profile is a
+                20-iteration window from iteration 100.  No hand-written
+                kernel on its path
+ 25. miner_env  BatchedMinerEnv at create_agent's configuration (CITIES
+                builder, NetworkFixedLatency(1000), 10 miners, agent at
+                45%), R = 4096, 150 steps of 1000 ms (cut from 600: the
+                time limit) under miner_policy (release everything when
+                behind, else withhold): nothing overflows, replica 0's
+                last observation equals the JAX environment's (MINER_R0);
+                miner_env_profile is steps 100-104.  No hand-written
+                kernel on its path
+ 26. attack_env BatchedAttackEnv on make_handel(flagship_params(4096)),
+                R = 16, 100 ms steps to 500 ms (cut from 600: the time
+                limit), replicas 0-7 silent on every step and 8-15
+                never: the never-silent replicas' done_at equals the
+                flagship phase's where it is below 500 and is 0 where
+                not, the silent ones' undone share is not below the
+                others', and
+                popcount_words, popcount_binop and cand_score launch;
+                attack_profile is ticks 200-209 inside the run
+ 27. phase_seconds  each phase's wall seconds (profiles and checks included)
+ 28. launches_by_path  each path's launch count of every form
+ 29. kernels    one line listing every ported kernel with its numbers
 
 The last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -197,6 +237,7 @@ import torch
 
 from wittgenstein_tpu_torch.core.registries import builder_name
 from wittgenstein_tpu_torch.engine import replicate_state
+from wittgenstein_tpu_torch.faults import FaultConfig, FaultPlan, lower_plans
 from wittgenstein_tpu_torch.interop import state_to_numpy
 from wittgenstein_tpu_torch.ops import bitops, kernels
 from wittgenstein_tpu_torch.protocols.casper import CasperParameters
@@ -204,6 +245,10 @@ from wittgenstein_tpu_torch.protocols.casper_batched import make_casper
 from wittgenstein_tpu_torch.protocols.dfinity_batched import make_dfinity
 from wittgenstein_tpu_torch.protocols.enr_batched import make_enr
 from wittgenstein_tpu_torch.protocols.enr_gossiping import ENRParameters
+from wittgenstein_tpu_torch.protocols.ethpow import ETHPoWParameters
+from wittgenstein_tpu_torch.protocols.ethpow_batched import BatchedEthPow, replicate_ethpow
+from wittgenstein_tpu_torch.protocols.ethpow_env import BatchedMinerEnv, chain_count
+from wittgenstein_tpu_torch.protocols.handel_env import BatchedAttackEnv
 from wittgenstein_tpu_torch.protocols.gsf import GSFSignatureParameters
 from wittgenstein_tpu_torch.protocols.gsf_batched import BatchedGSF, make_gsf
 from wittgenstein_tpu_torch.protocols.handel import HandelParameters, flagship_params
@@ -369,6 +414,52 @@ ENR_R0 = {"alive": 51, "adj_cells": 1054, "max_degree": 50, "min_alive_degree": 
 ENR_CHURN = dict(nodes=24, total_peers=4, max_peers=6, number_of_different_capabilities=5,
                  cap_per_node=2, cap_gossip_time=3000, time_to_leave=16000,
                  time_to_change=6000, changing_nodes=1, discard_time=100)
+# ETHPoW: the reference's 10 miners (try_miner, create_agent), the JAX
+# tests' 45% attack, b_max 512
+ETH_MINERS = 10
+ETH_B_MAX = 512
+ETH_REPLICAS = 4096
+ETH_MS = 600_000
+ETH_CONFIGS = {
+    "honest": {},
+    "selfish": dict(byz_class_name="ETHSelfishMiner", byz_mining_ratio=0.45),
+    "selfish2": dict(byz_class_name="ETHSelfishMiner2", byz_mining_ratio=0.45),
+}
+# the JAX package's seed-0 run of each at ETH_MS (public tip seen by miner 0)
+ETH_R0 = {
+    "honest": {"n_blocks": 59, "chain": 58, "tip": 58, "revenue_ratio": 0.05172413793103448,
+               "blocks_mined": [7, 3, 6, 5, 8, 6, 9, 3, 7, 4], "overflowed": 0},
+    "selfish": {"n_blocks": 69, "chain": 46, "tip": 68, "revenue_ratio": 0.6304347826086957,
+                "blocks_mined": [4, 29, 4, 5, 5, 6, 6, 2, 5, 2], "overflowed": 0},
+    "selfish2": {"n_blocks": 69, "chain": 46, "tip": 68, "revenue_ratio": 0.6304347826086957,
+                 "blocks_mined": [4, 29, 4, 5, 5, 6, 6, 2, 5, 2], "overflowed": 0},
+}
+# BatchedMinerEnv at create_agent's configuration (ethpow.py:757-766)
+MINER_PARAMS = dict(node_builder_name=builder_name("CITIES", True, 0),
+                    network_latency_name="NetworkFixedLatency(1000)", number_of_miners=10,
+                    byz_class_name="ETHMinerAgent", byz_mining_ratio=0.45)
+MINER_REPLICAS = 4096
+MINER_DECISION_MS = 1000
+MINER_STEPS = 150  # cut from 600: the time limit (PERF.md, PR 10)
+MINER_PROFILE_STEPS = 5  # ~5800 kernels a step
+# the JAX environment's replica 0 after MINER_STEPS under `miner_policy`
+MINER_R0 = {"advance": 8, "head_height": 7951093, "i_am_ahead": True, "lag": 0,
+            "mined_block": False, "n_withheld": 2, "other_new_head": False,
+            "other_private_head": False, "reward_ratio": 0.8999999761581421,
+            "secret_advance": 2, "time": 150001}
+# the JAX package's seed-0 PingPong(1000) under the all-lanes plan, 700 ms
+FPP_R0 = {"pong": 489, "msg_received": 1084, "msg_sent": 1595, "done_at_sum": 0,
+          "dropped_by_fault": [405, 106], "delayed_by_fault": [0, 568], "pending": 0,
+          "time": 700}
+# BatchedAttackEnv on the flagship: replicas 0-7 silent every step
+ATTACK_REPLICAS = 16
+ATTACK_SILENT = 8
+ATTACK_DECISION_MS = 100
+# cut from 600 (the flagship's 549 ticks) for the time limit; the
+# flagship's nodes finish at 445 / 465 / 487 ms (P10/P50/P90), so most of
+# the honest half is done by 500
+ATTACK_HORIZON_MS = 500
+ATTACK_PROFILE_FROM = 200  # the attack window's first tick
 
 
 def emit(obj) -> None:
@@ -1109,9 +1200,70 @@ IDENTITY = {
 }
 
 
+def all_lanes_plan(n: int) -> FaultPlan:
+    """Every fault lane at once: 10% of the nodes crash at 100 ms and
+    recover at 400, two groups split from 50 to 250 ms, 5% of the sends
+    drop, latencies grow 1.5x, node 7 is silent and node 11 delayed 40 ms."""
+    return (FaultPlan("all_lanes").crash(list(range(5, n, 10)), at=100, recover=400)
+            .partition((np.arange(n) % 2).astype(np.int32), start=50, end=250)
+            .drop(50, start=0).inflate(1500, start=0)
+            .silence([7], start=0).delay([11], 40, start=0))
+
+
+def miner_policy(obs: dict) -> np.ndarray:
+    """Release everything when behind, else withhold."""
+    return np.where(obs["lag"] > 0, obs["n_withheld"], 0).astype(np.int32)
+
+
+def _ethpow_case(config: str):
+    def run(dev):
+        net = BatchedEthPow(ETHPoWParameters(number_of_miners=ETH_MINERS,
+                                             **ETH_CONFIGS.get(config, IDENTITY_AGENT)),
+                            device=dev)
+        return state_to_numpy(net.run_ms(replicate_ethpow(net.init_state(), 2), 600_000))
+    return run
+
+
+def _miner_env_case(dev):
+    env = BatchedMinerEnv(ETHPoWParameters(**MINER_PARAMS), n_replicas=2,
+                          decision_ms=MINER_DECISION_MS, device=dev)
+    obs = env.reset()
+    for _ in range(20):
+        obs, _, _ = env.step(miner_policy(obs))
+    return state_to_numpy(env.states)
+
+
+def _faults_case(make, plan, ms, chunk):
+    def run(dev):
+        net, state = make(dev)
+        fnet, states = net.with_faults(replicate_state(state, 2), FaultConfig(), plan)
+        for _ in range(ms // chunk):
+            states = fnet.run_ms_batched(states, chunk)
+        return state_to_numpy(states)
+    return run
+
+
+IDENTITY_AGENT = dict(byz_class_name="ETHMinerAgent", byz_mining_ratio=0.45)
+# cases that run their own way: case -> (run on a device -> numpy leaves, ms)
+IDENTITY_RUNS = {
+    "ethpow_honest": (_ethpow_case("honest"), 600_000),
+    "ethpow_selfish": (_ethpow_case("selfish"), 600_000),
+    "ethpow_selfish2": (_ethpow_case("selfish2"), 600_000),
+    "ethpow_agent": (_ethpow_case("agent"), 600_000),
+    "miner_env": (_miner_env_case, 20 * MINER_DECISION_MS),
+    "faults_pingpong": (_faults_case(lambda dev: make_pingpong(64, device=dev),
+                                     all_lanes_plan(64), 300, 300), 300),
+    "handel_silence": (_faults_case(
+        lambda dev: make_handel(flagship_params(64), score_cache=True, device=dev),
+        FaultPlan("silence_bloc").silence(list(range(51, 64)), start=0), 300, 100), 300),
+}
+
+
 def identity_state(case: str, dev: str) -> dict:
     """One identity case on one device: 2 replicas run in chunks; the
     state as numpy leaves."""
+    if case in IDENTITY_RUNS:
+        return IDENTITY_RUNS[case][0](dev)
     make, ms, chunk = IDENTITY[case]
     net, state = make(dev)
     states = replicate_state(state, 2)
@@ -1137,19 +1289,30 @@ def identity() -> None:
     t0 = time.perf_counter()
     with ctx.Pool(4, initializer=_one_thread) as cpu_pool, \
             ctx.Pool(4, initializer=_one_thread) as cuda_pool:
-        cpu = {case: cpu_pool.apply_async(identity_state, (case, "cpu")) for case in IDENTITY}
-        cuda = {case: cuda_pool.apply_async(identity_state, (case, "cuda")) for case in IDENTITY}
-        for case, (_, ms, _) in IDENTITY.items():
+        # the slice-10 cases after the first five, longest first again
+        cases = list(IDENTITY)[:5] + list(IDENTITY_RUNS) + list(IDENTITY)[5:]
+        cpu = {case: cpu_pool.apply_async(identity_state, (case, "cpu")) for case in cases}
+        cuda = {case: cuda_pool.apply_async(identity_state, (case, "cuda")) for case in cases}
+        for case in cases:
             out = cuda[case].get()
             bad = _leaf_diff(cpu[case].get(), out)
             if bad:
                 raise AssertionError(f"identity {case}: CPU and CUDA differ in {bad[:10]}")
-            emit({"phase": "identity", "case": case, "nodes": int(out["x"].shape[-1]),
-                  "replicas": 2, "ms": ms, "leaves_equal": True,
-                  "done_nodes": int((out["done_at"] > 0).sum()),
-                  "dropped": int(out["dropped"].sum()),
-                  "overflow_live": out["ovf_valid"].sum(-1).tolist(),
-                  "ready_s": time.perf_counter() - t0})
+            ms = IDENTITY_RUNS[case][1] if case in IDENTITY_RUNS else IDENTITY[case][1]
+            row = {"phase": "identity", "case": case, "replicas": 2, "ms": ms,
+                   "leaves_equal": True, "ready_s": time.perf_counter() - t0}
+            if "x" in out:
+                row.update({"nodes": int(out["x"].shape[-1]),
+                            "done_nodes": int((out["done_at"] > 0).sum()),
+                            "dropped": int(out["dropped"].sum()),
+                            "overflow_live": out["ovf_valid"].sum(-1).tolist()})
+            if isinstance(out.get("faults"), dict):
+                row["dropped_by_fault"] = int(out["faults"]["dropped_by_fault"].sum())
+                row["delayed_by_fault"] = int(out["faults"]["delayed_by_fault"].sum())
+            if "n_blocks" in out:
+                row.update({"n_blocks": out["n_blocks"].tolist(),
+                            "overflowed": out["overflowed"].tolist()})
+            emit(row)
         for pool in (cpu_pool, cuda_pool):
             pool.close()
             pool.join()
@@ -1225,6 +1388,7 @@ def flagship() -> dict:
     """The flagship Handel at 4096 nodes, R = FLAGSHIP_REPLICAS, SIM_MS
     ms, with its profile window inside the run."""
     out = drive(flagship_params(4096), FLAGSHIP_REPLICAS, profile="profile")
+    out["_done_at"] = out["_states"].done_at.cpu().numpy()  # attack_env's reference
     del out["_net"], out["_states"]
     window = out.pop("_window")
     if not out["_all_live_done"]:
@@ -1362,6 +1526,7 @@ def pingpong() -> dict:
             raise AssertionError(f"pingpong: {name} kernel never launched")
     if "pack_occupied_rows" not in window["hand_kernels_per_iteration"]:
         raise AssertionError("pp_profile: no pack_occupied_rows kernel in the window")
+    out["_states"] = states  # faults_pingpong's neutral reference
     return out
 
 
@@ -1978,6 +2143,310 @@ def enr() -> dict:
     return out
 
 
+def _windowed_calls(obj, name: str, run, phase: str, start: int, per: int):
+    """A run as a user drives it (`run()`), with the launch counts zeroed
+    just before and read just after, and a torch.profiler window over
+    calls start .. start + per - 1 of obj.<name> (an event-loop iteration
+    or a tick) inside it.  The window's seconds are left out of the
+    returned wall time.  Returns (run's result, wall seconds without the
+    window, calls, launches, window)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    orig = getattr(obj, name)
+    calls, window_s, close_s = [0], [0.0], [0.0]
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+    def wrapped(*args, **kw):
+        if calls[0] == start:
+            torch.cuda.synchronize()
+            window_s[0] -= time.perf_counter()
+            prof.__enter__()
+        elif calls[0] == start + per:
+            torch.cuda.synchronize()
+            t_close = time.perf_counter()
+            prof.__exit__(None, None, None)
+            now = time.perf_counter()
+            close_s[0] = now - t_close
+            window_s[0] += now
+        calls[0] += 1
+        return orig(*args, **kw)
+
+    setattr(obj, name, wrapped)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels.KERNELS}
+    finally:
+        delattr(obj, name)  # the class's method again
+    if calls[0] <= start + per:
+        raise AssertionError(f"{phase}: the run ended before its profiled window closed")
+    t_parse = time.perf_counter()
+    window = _iteration_window(prof, phase, start, per)
+    window["profiler_s"] = close_s[0] + time.perf_counter() - t_parse
+    return out, wall - window_s[0], calls[0], launches, window
+
+
+def _scaled(wall: float, count: int, per: int, window: dict) -> float:
+    """The run's wall time with its window's share restored at the rest's
+    rate; sets the window's busy share."""
+    wall = wall * count / (count - per)
+    window["device_busy_share"] = window["device_ms_per_iteration"] / (wall / count * 1e3)
+    return wall
+
+
+def ethpow_chain(states) -> dict:
+    """Per replica, the public chain seen by miner 0 (chain_producers'
+    scope): its tip, length and the pos-1 miner's blocks on it."""
+    known = states.arrival[:, :, 0] <= states.time[:, None]
+    tip = torch.where(known, states.td, -1.0).argmax(1).to(torch.int32)
+    stop = (torch.arange(states.td.shape[1], device=tip.device) == 0).expand_as(known)
+    own = (states.producer == 1).to(torch.int32)
+    total = chain_count(states.parent, tip, stop, torch.ones_like(own))
+    mine = chain_count(states.parent, tip, stop, own)
+    return {"tip": tip.cpu().numpy(), "chain": total.cpu().numpy(), "mine": mine.cpu().numpy()}
+
+
+def ethpow() -> dict:
+    """ETHPoW at the reference's 10 miners, b_max ETH_B_MAX, R =
+    ETH_REPLICAS, ETH_MS ms through the event loop, honest and under each
+    selfish miner at 45%: nothing overflows, the selfish mean revenue
+    ratio is above 0.5, replica 0 equals the JAX package's seed-0 run
+    (ETH_R0).  Each config's ethpow_<config>_profile is a 20-iteration
+    window from iteration 100.  No hand-written kernel on its path."""
+    out = {"phase": "ethpow", "replicas": ETH_REPLICAS, "ms": ETH_MS, "configs": {}}
+    total_launches = {k.name: 0 for k in kernels.KERNELS}
+    for config, kw in ETH_CONFIGS.items():
+        torch.cuda.synchronize()
+        t_build = time.perf_counter()
+        net = BatchedEthPow(ETHPoWParameters(number_of_miners=ETH_MINERS, **kw), b_max=ETH_B_MAX)
+        states = replicate_ethpow(net.init_state(), ETH_REPLICAS)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t_build
+        phase = f"ethpow_{config}_profile"
+        states, wall, it, launches, window = _windowed_calls(
+            net, "_next_events", lambda: net.run_ms(states, ETH_MS), phase, PROFILE_FROM,
+            PROFILE_TICKS)
+        wall = _scaled(wall, it, PROFILE_TICKS, window)
+        ch = ethpow_chain(states)
+        ratio = ch["mine"] / np.maximum(ch["chain"], 1)
+        s0 = {f: getattr(states, f)[0].cpu().numpy() for f in ("n_blocks", "blocks_mined",
+                                                                "overflowed")}
+        r0 = {"n_blocks": int(s0["n_blocks"]), "chain": int(ch["chain"][0]),
+              "tip": int(ch["tip"][0]),
+              "revenue_ratio": int(ch["mine"][0]) / int(ch["chain"][0]),
+              "blocks_mined": s0["blocks_mined"].tolist(), "overflowed": int(s0["overflowed"])}
+        beats = net.jump_stats["beats"].cpu().numpy()
+        row = {"config": config, "build_s": build_s, "iterations": it, "wall_s": wall,
+               "ms_per_iteration": wall / it * 1e3, "sims_per_s": ETH_REPLICAS / wall,
+               "kernels_per_iteration": window["kernels_per_iteration"],
+               "device_ms_per_iteration": window["device_ms_per_iteration"],
+               "device_busy_share": window["device_busy_share"],
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               "full_beats_p10_p50_p90": _percentiles(beats), "beats_of_grid": ETH_MS // 10,
+               "n_blocks_p10_p50_p90": _percentiles(states.n_blocks.cpu().numpy()),
+               "revenue_ratio_mean": float(ratio.mean()),
+               "overflowed": int(states.overflowed.sum()), "launches": launches, "replica0": r0}
+        out["configs"][config] = row
+        emit({"phase": "ethpow", **row})
+        emit(window)
+        if row["overflowed"]:
+            raise AssertionError(f"ethpow {config}: {row['overflowed']} blocks overflowed")
+        if config != "honest" and not row["revenue_ratio_mean"] > 0.5:
+            raise AssertionError(
+                f"ethpow {config}: mean revenue ratio {row['revenue_ratio_mean']}")
+        if any(launches.values()):
+            raise AssertionError(f"ethpow: its path launched kernels: {launches}")
+        _check_replica0(f"ethpow {config}", r0, ETH_R0[config])
+        for k, v in launches.items():
+            total_launches[k] += v
+        del net, states
+    out["launches"] = total_launches
+    return out
+
+
+def miner_env() -> dict:
+    """BatchedMinerEnv at create_agent's configuration, R = MINER_REPLICAS,
+    MINER_STEPS steps of MINER_DECISION_MS under `miner_policy`, with a
+    MINER_PROFILE_STEPS-step miner_env_profile window from step 100:
+    nothing overflows and
+    replica 0's last observation equals the JAX environment's (MINER_R0).
+    No hand-written kernel on its path."""
+    torch.cuda.synchronize()
+    t_build = time.perf_counter()
+    env = BatchedMinerEnv(ETHPoWParameters(**MINER_PARAMS), n_replicas=MINER_REPLICAS,
+                          decision_ms=MINER_DECISION_MS)
+    obs = env.reset()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_build
+
+    def run():
+        o, iterations = obs, 0
+        for _ in range(MINER_STEPS):
+            o, _, info = env.step(miner_policy(o))
+            iterations += env.net.jump_stats["iterations"]
+        return o, info, iterations
+
+    (obs, info, iterations), wall, steps, launches, window = _windowed_calls(
+        env, "step", run, "miner_env_profile", PROFILE_FROM, MINER_PROFILE_STEPS)
+    wall = _scaled(wall, steps, MINER_PROFILE_STEPS, window)
+    r0 = {k: v[0].item() for k, v in obs.items()}
+    out = {"phase": "miner_env", "replicas": MINER_REPLICAS, "steps": steps,
+           "decision_ms": MINER_DECISION_MS, "build_s": build_s, "wall_s": wall,
+           "ms_per_step": wall / steps * 1e3, "loop_iterations": iterations,
+           "sims_per_s": MINER_REPLICAS / wall,
+           "kernels_per_step": window["kernels_per_iteration"],
+           "device_ms_per_step": window["device_ms_per_iteration"],
+           "device_busy_share": window["device_busy_share"],
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "reward_ratio_p10_p50_p90": _percentiles(obs["reward_ratio"]),
+           "overflowed": int(info["overflowed"].sum()), "launches": launches, "replica0": r0}
+    emit(out)
+    emit(window)
+    if out["overflowed"]:
+        raise AssertionError(f"miner_env: {out['overflowed']} blocks overflowed")
+    if any(launches.values()):
+        raise AssertionError(f"miner_env: its path launched kernels: {launches}")
+    _check_replica0("miner_env", r0, MINER_R0)
+    return out
+
+
+def faults_pingpong(plain) -> dict:
+    """PingPong at PP_NODES nodes, R = PP_REPLICAS, PP_MS with
+    stop_when_done on the 512-row wheel, the first half of the replicas
+    under `all_lanes_plan` and the second half neutral (one lower_plans
+    stack), with fpp_profile inside the run: every neutral replica equals
+    the plain pingpong phase's state for its seed (`plain`, that phase's
+    final states), replica 0 equals the JAX package's seed-0 run (FPP_R0),
+    the fault counters are nonzero and the occupancy kernels launch."""
+    t_build = time.perf_counter()
+    net, state = make_pingpong(PP_NODES)
+    half = PP_REPLICAS // 2
+    plan = all_lanes_plan(PP_NODES)
+    fs = lower_plans([plan] * half + [None] * (PP_REPLICAS - half), PP_NODES,
+                     net.protocol.n_msg_types())
+    fnet, states = net.with_faults(replicate_state(state, PP_REPLICAS), FaultConfig(), fs)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_build
+    states, wall, launches, window = _windowed_jumps(fnet, states, PP_MS, True, "fpp_profile")
+    f = states.faults
+    s0 = {"pong": int(states.proto["pong"][0, 0]),
+          "msg_received": int(states.msg_received[0].sum()),
+          "msg_sent": int(states.msg_sent[0].sum()), "done_at_sum": int(states.done_at[0].sum()),
+          "dropped_by_fault": f.dropped_by_fault[0].tolist(),
+          "delayed_by_fault": f.delayed_by_fault[0].tolist(),
+          "pending": int(states.ovf_valid[0].sum() + states.msg_valid[0].sum()),
+          "time": int(states.time[0])}
+    differ = []
+    if plain is not None:
+        for name in states._fields:
+            a, b = getattr(states, name), getattr(plain, name)
+            if isinstance(a, dict):
+                pairs = [(f"proto.{k}", v, b[k]) for k, v in a.items()]
+            elif isinstance(a, torch.Tensor):
+                pairs = [(name, a, b)]
+            else:  # the side-cars: faults only on this side, no telemetry
+                pairs = []
+            differ += [k for k, v, w in pairs if not torch.equal(v[half:], w[half:])]
+    out = {**_jump_row("faults_pingpong", fnet, PP_REPLICAS, build_s, wall, launches, window,
+                       states),
+           "ms": PP_MS, "replica0": s0,
+           "dropped_by_fault": int(f.dropped_by_fault.sum()),
+           "delayed_by_fault": int(f.delayed_by_fault.sum()),
+           "neutral_fault_counts": int(f.dropped_by_fault[half:].sum()
+                                       + f.delayed_by_fault[half:].sum()),
+           "neutral_equal_plain": None if plain is None else not differ,
+           "pong_faulted_p10_p50_p90": _percentiles(
+               states.proto["pong"][:half, 0].cpu().numpy())}
+    emit(out)
+    emit(window)
+    if differ:
+        raise AssertionError(f"faults_pingpong: neutral replicas differ from plain in {differ}")
+    if out["neutral_fault_counts"]:
+        raise AssertionError("faults_pingpong: a neutral replica counted a fault")
+    if not (out["dropped_by_fault"] and out["delayed_by_fault"]):
+        raise AssertionError("faults_pingpong: a fault counter stayed 0")
+    for name in ("pack_occupied", "lowest_set_bit", "popcount_words"):
+        if launches[name] <= 0:
+            raise AssertionError(f"faults_pingpong: {name} kernel never launched")
+    _check_replica0("faults_pingpong", s0, FPP_R0)
+    return out
+
+
+def attack_env(flag_done) -> dict:
+    """BatchedAttackEnv on the flagship: make_handel(flagship_params(4096)),
+    R = ATTACK_REPLICAS, ATTACK_HORIZON_MS in ATTACK_DECISION_MS steps,
+    replicas 0-7 silent on every step and 8-15 never, with a 10-tick
+    attack_profile window from tick ATTACK_PROFILE_FROM: the never-silent
+    replicas' done_at equals the flagship phase's for the same seeds
+    (`flag_done`) on every node done before the horizon and is 0 on the
+    others (done_at is the tick of completion), some of their nodes are
+    done, the silent replicas' undone share is not below the others',
+    and the popcount family launches in this run."""
+    torch.cuda.synchronize()
+    t_build = time.perf_counter()
+    net, state = make_handel(flagship_params(FLAGSHIP_NODES))
+    env = BatchedAttackEnv(net, state, n_replicas=ATTACK_REPLICAS,
+                           decision_ms=ATTACK_DECISION_MS, horizon_ms=ATTACK_HORIZON_MS)
+    obs = env.reset()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_build
+    acts = np.arange(ATTACK_REPLICAS) < ATTACK_SILENT
+    steps = ATTACK_HORIZON_MS // ATTACK_DECISION_MS
+
+    def run():
+        o = obs
+        for _ in range(steps):
+            o, _, _ = env.step(acts)
+        return o
+
+    obs, wall, ticks, launches, window = _windowed_calls(
+        env.net, "_step_core", run, "attack_profile", ATTACK_PROFILE_FROM,
+        LOCKSTEP_PROFILE_TICKS)
+    wall = _scaled(wall, ticks, LOCKSTEP_PROFILE_TICKS, window)
+    done = env.states.done_at.cpu().numpy()
+    undone = obs["undone_frac"]
+    f = env.states.faults
+    out = {"phase": "attack_env", "nodes": FLAGSHIP_NODES, "replicas": ATTACK_REPLICAS,
+           "silent_replicas": ATTACK_SILENT, "silent_nodes": int(len(env.silent_nodes)),
+           "build_s": build_s, "ticks": ticks, "wall_s": wall, "ms_per_tick": wall / ticks * 1e3,
+           "sims_per_s": ATTACK_REPLICAS / wall,
+           "kernels_per_tick": window["kernels_per_iteration"],
+           "device_ms_per_tick": window["device_ms_per_iteration"],
+           "device_busy_share": window["device_busy_share"],
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "undone_silent": undone[:ATTACK_SILENT].tolist(),
+           "undone_honest": undone[ATTACK_SILENT:].tolist(),
+           "dropped_by_fault_silent": int(f.dropped_by_fault[:ATTACK_SILENT].sum()),
+           "dropped_by_fault_honest": int(f.dropped_by_fault[ATTACK_SILENT:].sum()),
+           "honest_done_equal_flagship": None if flag_done is None else bool(
+               np.array_equal(done[ATTACK_SILENT:], np.where(
+                   flag_done[ATTACK_SILENT:] < ticks, flag_done[ATTACK_SILENT:], 0))),
+           "honest_done_share": float((done[ATTACK_SILENT:] > 0).mean()),
+           "launches": launches,
+           "launches_per_tick": {k: v / ticks for k, v in launches.items()}}
+    emit(out)
+    emit(window)
+    if out["honest_done_equal_flagship"] is False:
+        raise AssertionError("attack_env: a never-silent replica's done_at differs from the "
+                             "flagship's")
+    if not out["honest_done_share"] > 0:
+        raise AssertionError("attack_env: no never-silent node is done by the horizon")
+    if out["dropped_by_fault_honest"] or not out["dropped_by_fault_silent"]:
+        raise AssertionError("attack_env: silence acted where it should not, or nowhere")
+    if undone[:ATTACK_SILENT].min() < undone[ATTACK_SILENT:].max():
+        raise AssertionError(f"attack_env: a silent replica's undone share is below an "
+                             f"honest one's: {undone.tolist()}")
+    for name in ("popcount_words", "popcount_binop", "cand_score"):
+        if launches[name] <= 0:
+            raise AssertionError(f"attack_env: {name} kernel never launched")
+    return out
+
+
 def casper_replica0(states) -> dict:
     """Replica 0's outcome in the numbers the JAX package's seed-0 run
     gives (CASPER_R0)."""
@@ -2096,9 +2565,10 @@ def paxos() -> dict:
     return out
 
 
-PHASES = ("kernels", "identity", "flagship", "byzantine", "pingpong", "dfinity", "gsf",
-          "p2phandel", "handeleth2", "sanfermin", "casper", "paxos", "slush", "snowflake",
-          "p2pflood", "optimistic", "cappos", "enr")
+PHASES = ("kernels", "identity", "flagship", "byzantine", "pingpong", "faults_pingpong",
+          "dfinity", "gsf", "p2phandel", "handeleth2", "sanfermin", "casper", "paxos", "slush",
+          "snowflake", "p2pflood", "optimistic", "cappos", "enr", "ethpow", "miner_env",
+          "attack_env")
 
 
 def main(argv) -> int:
@@ -2131,8 +2601,10 @@ def main(argv) -> int:
     if want("identity"):
         identity()
         lap("identity")
+    flag_done = None
     if want("flagship"):
         runs["flagship"] = flag = flagship()
+        flag_done = flag.pop("_done_at")
         lap("flagship")
     if want("byzantine"):
         runs["byzantine"] = byz = byzantine()
@@ -2141,9 +2613,15 @@ def main(argv) -> int:
         emit({"phase": "byz_rows", "lowest_set_bit": lowest_rows,
               "lowest_set_bit_andnot": andnot_rows})
         lap("byzantine")
+    pp_states = None
     if want("pingpong"):
         runs["pingpong"] = pp = pingpong()
+        pp_states = pp.pop("_states")
         lap("pingpong")
+    if want("faults_pingpong"):
+        runs["faults_pingpong"] = faults_pingpong(pp_states)
+        lap("faults_pingpong")
+    del pp_states
     if want("dfinity"):
         runs["dfinity"] = dfinity()
         lap("dfinity")
@@ -2156,7 +2634,9 @@ def main(argv) -> int:
     for path, run in (("handeleth2", handeleth2), ("sanfermin", sanfermin), ("casper", casper),
                       ("paxos", paxos), ("slush", lambda: avalanche("slush")),
                       ("snowflake", lambda: avalanche("snowflake")), ("p2pflood", p2pflood),
-                      ("optimistic", optimistic), ("cappos", cappos), ("enr", enr)):
+                      ("optimistic", optimistic), ("cappos", cappos), ("enr", enr),
+                      ("ethpow", ethpow), ("miner_env", miner_env),
+                      ("attack_env", lambda: attack_env(flag_done))):
         if want(path):
             runs[path] = run()
             lap(path)

@@ -141,14 +141,15 @@ class _EveryFiveMs(BatchedProtocol):
 
 
 def test_unported_engine_options_raise():
-    """What the port still leaves out raises: the telemetry and fault
-    side-cars and tick intervals other than 1 and None; a quantum wider
-    than the wheel fails as in the JAX package."""
+    """What the port still leaves out raises: the telemetry side-car and
+    tick intervals other than 1 and None; a fault switch that is not a
+    FaultConfig is refused; a quantum wider than the wheel fails as in the
+    JAX package."""
     proto = BatchedHandel(flagship_params(64))
     lat = registry_network_latencies.get_by_name(None)
     for p, kw, exc in (
         (proto, dict(telemetry=object()), NotImplementedError),
-        (proto, dict(faults=object()), NotImplementedError),
+        (proto, dict(faults=object()), TypeError),
         (_EveryFiveMs(), {}, NotImplementedError),
         (_CoarseProbe(), dict(wheel_rows=512), ValueError),
     ):
@@ -156,3 +157,45 @@ def test_unported_engine_options_raise():
             BatchedNetwork(p, lat, 64, device="cpu", **kw)
     # the wheel and the consensus-jump switch are ported
     BatchedNetwork(proto, lat, 64, device="cpu", wheel_rows=512, batched_jumps=True)
+
+
+def test_new_entry_points_default_to_cuda(monkeypatch):
+    """ETHPoW, its miner environment, the attack environment and a fault
+    plan's lowering: CUDA unless asked for the CPU, and without a card the
+    default raises."""
+    from wittgenstein_tpu_torch.faults import FaultPlan, lower_plans
+    from wittgenstein_tpu_torch.protocols.ethpow import ETHPoWParameters
+    from wittgenstein_tpu_torch.protocols.ethpow_batched import BatchedEthPow
+    from wittgenstein_tpu_torch.protocols.ethpow_env import BatchedMinerEnv
+    from wittgenstein_tpu_torch.protocols.handel_env import BatchedAttackEnv
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    agent = ETHPoWParameters(number_of_miners=10, byz_class_name="ETHMinerAgent",
+                             byz_mining_ratio=0.45)
+    for build in (lambda **kw: BatchedEthPow(ETHPoWParameters(number_of_miners=3), **kw),
+                  lambda **kw: BatchedMinerEnv(agent, **kw),
+                  lambda **kw: BatchedAttackEnv(**kw),
+                  lambda **kw: FaultPlan("x").drop(5).lower(8, 2, **kw),
+                  lambda **kw: lower_plans([None], 8, 2, **kw)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+        build(device="cpu")
+    net = BatchedEthPow(ETHPoWParameters(number_of_miners=3), device="cpu")
+    assert net.init_state().arrival.device.type == "cpu"
+
+
+def test_port_data_is_its_own():
+    """The CITIES builder reads the port's own city tables (names,
+    positions and populations; no ping matrix), and no port source names a
+    file of the JAX package."""
+    from wittgenstein_tpu_torch.core import geo
+
+    data = PKG / "data" / "cities.json"
+    assert geo._CITIES_JSON == data and data.is_file()
+    assert data.stat().st_size < 16_000
+    assert len(geo.latency_cities()) == 219
+    assert len(geo.GeoAllCities().cities_position()) == 241
+    for path in SOURCES:
+        text = path.read_text()
+        for needle in ("wittgenstein_tpu/data", "wittgenstein_tpu.data", ".npz"):
+            assert needle not in text, f"{path.relative_to(ROOT)} names {needle!r}"

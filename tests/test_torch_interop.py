@@ -128,3 +128,45 @@ def test_every_ported_protocol_declares_its_state():
         if cls.PROTO_KEYS:
             assert protocol_of(cls.PROTO_KEYS) is cls
     assert protocol_of(["pong_count", "x"]) is None  # a probe protocol: no words
+
+
+def test_fault_side_car_round_trip():
+    """A JAX state carrying a FaultState (here a two-replica lower_plans
+    stack, one row neutral) crosses into the port's FaultState and comes
+    back as the dict of its leaves, dtype for dtype."""
+    from wittgenstein_tpu.engine import replicate_state
+    from wittgenstein_tpu.faults import FaultConfig, FaultPlan, lower_plans
+    from wittgenstein_tpu_torch.faults import FaultState
+
+    net, state = jpingpong(16)
+    fs = lower_plans([None, FaultPlan("x").crash([1, 2], at=5).drop(300).silence([3])], 16,
+                     net.protocol.n_msg_types())
+    _, jstate = net.with_faults(replicate_state(state, 2), FaultConfig(), fs)
+    want = jax_numpy(jstate)
+    ts = state_from_numpy(want, "cpu")
+    assert isinstance(ts.faults, FaultState)
+    got = state_to_numpy(ts)
+    assert set(got["faults"]) == set(want["faults"]._fields)
+    for k, v in want["faults"]._asdict().items():
+        assert got["faults"][k].dtype == v.dtype and np.array_equal(got["faults"][k], v), k
+
+
+def test_ethpow_state_round_trip():
+    """ETHPoW's state (the JAX package's dataclass, no proto and no store)
+    crosses both ways leaf for leaf."""
+    import dataclasses
+
+    from wittgenstein_tpu.protocols.ethpow import ETHPoWParameters
+    from wittgenstein_tpu.protocols.ethpow_batched import BatchedEthPow, replicate_ethpow
+    from wittgenstein_tpu_torch.protocols.ethpow_batched import EthPowState
+
+    net = BatchedEthPow(ETHPoWParameters(number_of_miners=4, byz_class_name="ETHSelfishMiner",
+                                         byz_mining_ratio=0.3), b_max=16)
+    jstate = jax.tree_util.tree_map(np.asarray, replicate_ethpow(net.init_state(), 3))
+    ts = state_from_numpy(jstate, "cpu")
+    assert isinstance(ts, EthPowState)
+    got = state_to_numpy(ts)
+    assert list(got) == [f.name for f in dataclasses.fields(jstate)]
+    for k, v in got.items():
+        w = getattr(jstate, k)
+        assert v.dtype == w.dtype and v.shape == w.shape and np.array_equal(v, w), k

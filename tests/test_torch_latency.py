@@ -114,10 +114,10 @@ def test_only_default_models_are_registered():
     for name in (None, "NetworkLatencyByDistanceWJitter", "AwsRegionNetworkLatency",
                  "IC3NetworkLatency"):
         assert type(tlats.get_by_name(name)).__name__ == type(jlats.get_by_name(name)).__name__
-    for name in (None, AWS_BUILDER):
+    for name in (None, AWS_BUILDER, builder_name("CITIES", True, 0.0)):
         assert type(tbuilders.get_by_name(name)).__name__ == type(
             jbuilders.get_by_name(name)).__name__
-    for name in (builder_name("CITIES", True, 0.0), builder_name("AWS", False, 0.0),
+    for name in (builder_name("CITIES", False, 0.0), builder_name("AWS", False, 0.0),
                  builder_name("AWS", True, 0.1), builder_name("RANDOM", True, 0.33)):
         with pytest.raises(NotImplementedError, match=name):
             tbuilders.get_by_name(name)

@@ -42,6 +42,8 @@ def _one_torch_thread():
 def jax_numpy(state) -> dict:
     d = jax.tree_util.tree_map(np.asarray, state)._asdict()
     d["proto"] = dict(d["proto"])
+    if d["faults"] != ():
+        d["faults"] = d["faults"]._asdict()
     return d
 
 
@@ -50,11 +52,11 @@ def assert_same_state(want: dict, got: dict, tag: str) -> None:
     assert set(want) == set(got), tag
     for f, w in want.items():
         g = got[f]
-        if f == "proto":
-            assert set(w) == set(g), f"{tag}: proto keys"
+        if isinstance(w, dict):  # proto, and a fault side-car's leaves
+            assert set(w) == set(g), f"{tag}: {f} keys"
             for k in w:
-                assert w[k].dtype == g[k].dtype and w[k].shape == g[k].shape, f"{tag}: proto.{k}"
-                assert np.array_equal(w[k], g[k]), f"{tag}: proto.{k} differs"
+                assert w[k].dtype == g[k].dtype and w[k].shape == g[k].shape, f"{tag}: {f}.{k}"
+                assert np.array_equal(w[k], g[k]), f"{tag}: {f}.{k} differs"
         elif isinstance(w, np.ndarray):
             assert w.dtype == g.dtype and w.shape == g.shape, f"{tag}: {f} dtype/shape"
             assert np.array_equal(w, g), f"{tag}: {f} differs"

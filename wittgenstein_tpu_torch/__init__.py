@@ -19,7 +19,11 @@ Entry points (`protocols.handel_batched.make_handel`,
 `protocols.optimistic_p2p_signature_batched.make_optimistic`,
 `protocols.sanfermin_cappos_batched.make_sanfermin_cappos`,
 `protocols.enr_batched.make_enr`,
-`engine.core.BatchedNetwork`)
+`protocols.ethpow_batched.BatchedEthPow`,
+`protocols.ethpow_env.BatchedMinerEnv`,
+`protocols.handel_env.BatchedAttackEnv`,
+`engine.core.BatchedNetwork` with `BatchedNetwork.with_faults`, and
+`faults.FaultPlan`'s `lower`/`lower_plans`)
 run on CUDA unless the caller passes `device="cpu"`; without a card they
 raise instead of falling back.  On a
 CUDA tensor every bitset op launches its kernel; on a CPU tensor it runs
@@ -28,11 +32,15 @@ the kernel's plain PyTorch version.
 Layout mirrors the JAX package so each module's counterpart is easy to
 find:
   utils/      JavaRandom, Pareto distribution, Java integer helpers
-  core/       node populations (random and AWS-city builders), geometry,
+  core/       node populations (random, AWS-city and all-cities builders),
+              geometry,
               latency models (distance + jitter, AWS regions, IC3,
               fixed, uniform, none), registries
   engine/     SimState, BatchedNetwork (flat store and time wheel, lockstep
-              and consensus-jump loops), counter RNG, narrow storage plans
+              and consensus-jump loops, the fault lanes at send and
+              delivery), counter RNG, narrow storage plans
+  faults/     FaultPlan (crash, partition, drop, inflate, silence, delay),
+              its lowering to the FaultState side-car, digests
   ops/        packed-bitset ops, their CUDA kernels (ops/csrc) and binding
   oracle/     the P2P overlay graph builder (host-side, no DES)
   protocols/  batched Handel and GSF on the bitset-aggregation base;
@@ -40,7 +48,11 @@ find:
               per-ms on the time wheel; PingPong, Dfinity, Paxos, Slush
               and Snowflake on the event-driven path; CasperIMD,
               P2PFlood, OptimisticP2PSignature and ENRGossiping
-              event-driven on the flat store
+              event-driven on the flat store; ETHPoW on its own state
+              and event loop, with the selfish-mining environment; the
+              Handel attack environment on the fault lanes
+  data/       the port's own copy of the city tables (names, positions,
+              populations)
   interop.py  carry a JAX-package state into the port and back
 """
 

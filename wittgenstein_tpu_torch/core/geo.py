@@ -1,17 +1,22 @@
 """Map geometry and the AWS-region city table (reference: core
 geoinfo/Geo.java, GeoAWS.java, CityInfo.java).
 
-What the default RANDOM node builder and the AWS node builder need: the
-Mercator map bounds, the default city name, and the 11 AWS-region cities
-with their positions and cumulative sampling probabilities.  The
-all-cities table (GeoAllCities and its CSV) is not ported.
+What the node builders need: the Mercator map bounds, the default city
+name, the 11 AWS-region cities with their positions and cumulative
+sampling probabilities, and the all-cities table (`GeoAllCities`, 241
+cities with population weights) with the 219 city names of the
+reference's ping CSVs (`latency_cities`, CSVLatencyReader.cities()).  The
+port keeps its own copy of those two tables, names, positions and
+populations only, in data/cities.json; it carries no ping matrix.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
-from typing import Dict, Tuple
+from pathlib import Path
+from typing import Dict, List, Tuple
 
 MAX_X = 2000
 MAX_Y = 1112
@@ -64,3 +69,35 @@ class GeoAWS(Geo):
 
     def cities_position(self) -> Dict[str, CityInfo]:
         return self.city_info_map(self.CITY_POS, len(self.CITY_POS))
+
+
+_CITIES_JSON = Path(__file__).resolve().parent.parent / "data" / "cities.json"
+_CITIES: dict = {}
+
+
+def _cities_data() -> dict:
+    if not _CITIES:
+        _CITIES.update(json.loads(_CITIES_JSON.read_text()))
+    return _CITIES
+
+
+def latency_cities() -> List[str]:
+    """The city names of the reference's ping CSVs, in the JAX package's
+    order (CSVLatencyReader().cities(), tools/latency_csv.py:45)."""
+    return list(_cities_data()["latency_cities"])
+
+
+class GeoAllCities(Geo):
+    """All 241 cities of the reference's cities.csv with population-weighted
+    probability (GeoAllCities.java:41-55: positions converted to Mercator,
+    population + 200000), in the JAX package's baked order."""
+
+    def __init__(self):
+        g = _cities_data()["geo_cities"]
+        cities = {n: (x, y, p) for n, x, y, p in
+                  zip(g["names"], g["merc_x"], g["merc_y"], g["population"])}
+        total = sum(v[2] for v in cities.values())
+        self._positions = self.city_info_map(cities, total)
+
+    def cities_position(self) -> Dict[str, CityInfo]:
+        return dict(self._positions)

@@ -3,7 +3,8 @@
 Reference semantics: core RegistryNodeBuilders.java and
 RegistryNetworkLatencies.java.  The port registers the defaults
 (`node_builder_name=None`, `network_latency_name=None`), the AWS builder
-`builder_name("AWS", True, 0.0)`, the `AwsRegionNetworkLatency`,
+`builder_name("AWS", True, 0.0)`, the all-cities builder
+`builder_name("CITIES", True, 0.0)` (ETHPoW's miner environment), the `AwsRegionNetworkLatency`,
 `IC3NetworkLatency` and `NetworkNoLatency` models, and the fixed and
 uniform models the JAX package pre-registers (`name(FIXED, f)` and
 `name(UNIFORM, f)` for f in 0..8000); any other name raises, so a
@@ -15,7 +16,7 @@ from __future__ import annotations
 
 from typing import Optional
 
-from .geo import GeoAWS
+from .geo import GeoAllCities, GeoAWS, latency_cities
 from .latency import (
     AwsRegionNetworkLatency,
     IC3NetworkLatency,
@@ -28,6 +29,7 @@ from .latency import (
 from .node import NodeBuilder, NodeBuilderWithCity, NodeBuilderWithRandomPosition
 
 AWS = "AWS"
+CITIES = "CITIES"
 RANDOM = "RANDOM"
 DEFAULT_LATENCY = "NetworkLatencyByDistanceWJitter"
 LATENCY_CLASSES = {
@@ -49,6 +51,7 @@ def builder_name(location: str, speed_constant: bool, tor: float) -> str:
 
 DEFAULT_BUILDER = builder_name(RANDOM, True, 0.0)
 AWS_BUILDER = builder_name(AWS, True, 0.0)
+CITIES_BUILDER = builder_name(CITIES, True, 0.0)
 
 
 class RegistryNodeBuilders:
@@ -60,8 +63,12 @@ class RegistryNodeBuilders:
             return NodeBuilderWithRandomPosition()
         if name == AWS_BUILDER:
             return NodeBuilderWithCity(AwsRegionNetworkLatency.cities(), GeoAWS())
+        if name == CITIES_BUILDER:
+            # core/registries.py:128-131 of the JAX package
+            return NodeBuilderWithCity(latency_cities(), GeoAllCities())
         raise NotImplementedError(
-            f"node builder {name!r} is not ported; only {DEFAULT_BUILDER} and {AWS_BUILDER}"
+            f"node builder {name!r} is not ported; only {DEFAULT_BUILDER}, {AWS_BUILDER} "
+            f"and {CITIES_BUILDER}"
         )
 
 

@@ -24,8 +24,11 @@ engine/core.py:
     replica then jumps to its own next arrival, so replicas' clocks may
     differ.
 
-The port runs no fault or telemetry side-cars and no other tick interval;
-it raises on those.  Its one step is the JAX package's fused step
+A `FaultConfig` arms the fault side-car (`with_faults`, faults/): its
+lanes act at the send path (`_send_rows`) and the delivery view; with
+`faults=None` the engine runs no fault op and the state carries
+`faults=()`.  The port runs no telemetry side-car and no other tick
+interval; it raises on those.  Its one step is the JAX package's fused step
 (`fuse_step=True`), with the unfused step's exact row clear (see
 `_clear_visited_rows`).
 
@@ -43,6 +46,15 @@ import numpy as np
 import torch
 
 from ..core.latency import LatencyStatic, NetworkLatency, vec_latency
+from ..faults.state import (
+    FaultConfig,
+    FaultState,
+    count_by_type,
+    deliver_suppress,
+    inflate_latency,
+    neutral_fault_state,
+    send_suppress,
+)
 from ..ops.bitops import lowest_set_bit, pack_occupied, popcount_words
 from ..ops.indexing import add_at, add_masked, set_rows, take
 from .density import lane_plan
@@ -116,17 +128,19 @@ class SimState(NamedTuple):
     dropped: torch.Tensor  # int32: store overflow count
     proto: Any  # protocol-defined dict of tensors
     tele: Any = ()  # telemetry side-car: not ported, always empty
-    faults: Any = ()  # fault side-car: not ported, always empty
+    faults: Any = ()  # fault side-car: () or a faults.FaultState
 
 
 def map_state(fn, *states: SimState) -> SimState:
     """Apply fn leaf-wise over SimStates of the same structure (proto dict
-    leaves included; empty side-cars pass through)."""
+    and fault side-car leaves included; empty side-cars pass through)."""
     out = {}
     for f in SimState._fields:
         vals = [getattr(s, f) for s in states]
         if isinstance(vals[0], dict):
             out[f] = {k: fn(*[v[k] for v in vals]) for k in vals[0]}
+        elif isinstance(vals[0], FaultState):
+            out[f] = FaultState(*[fn(*xs) for xs in zip(*vals)])
         elif isinstance(vals[0], torch.Tensor):
             out[f] = fn(*vals)
         else:
@@ -202,8 +216,8 @@ class BatchedNetwork:
     ):
         if telemetry is not None:
             raise NotImplementedError("telemetry is not ported")
-        if faults is not None:
-            raise NotImplementedError("fault injection is not ported")
+        if faults is not None and not isinstance(faults, FaultConfig):
+            raise TypeError(f"faults must be a FaultConfig or None, got {type(faults)}")
         if protocol.TICK_INTERVAL not in (1, None):
             raise NotImplementedError(
                 "the port runs per-ms (TICK_INTERVAL 1) and event-driven "
@@ -215,6 +229,8 @@ class BatchedNetwork:
         self.n_nodes = n_nodes
         self.capacity = capacity
         self.jump_stats = None  # set by each event-driven run
+        # the fault lanes' static switch: None runs no fault op
+        self.faults = faults
         self.payload_width = protocol.PAYLOAD_WIDTH
         sizes = [protocol.msg_size(t) for t in range(protocol.n_msg_types())]
         self._msg_sizes_host = np.asarray(sizes, dtype=np.int32)
@@ -296,6 +312,8 @@ class BatchedNetwork:
             msg_head=i32(0),
             dropped=i32(0),
             proto=proto,
+            faults=(neutral_fault_state(n, self.protocol.n_msg_types(), dev)
+                    if self.faults is not None else ()),
         )
         # the protocol's t=0 sends go through the batched send path as a
         # batch of one (its own seed, not replicate_state's 0..R-1)
@@ -314,21 +332,45 @@ class BatchedNetwork:
         px = state.partition_x.view((x_col.shape[0],) + (1,) * (x_col.dim() - 1) + (-1,))
         return (px <= x_col[..., None]).sum(-1).to(torch.int32)
 
+    # -- fault injection ------------------------------------------------------
+    def with_faults(self, state: SimState, faults: Optional[FaultConfig] = None, plan=None):
+        """Arm fault injection on a built simulation: returns (an engine
+        copy carrying the FaultConfig, the state with a FaultState
+        side-car).  `plan` is a host-side FaultPlan (lowered here), a
+        lowered FaultState (e.g. a `lower_plans` stack, one schedule per
+        replica) or None for the neutral schedule.  A single-replica
+        schedule broadcasts over a batched state's replicas."""
+        import copy
+
+        net = copy.copy(self)
+        net.faults = FaultConfig() if faults is None else faults
+        t = self.protocol.n_msg_types()
+        if plan is None:
+            fs = neutral_fault_state(self.n_nodes, t, self.device)
+        elif isinstance(plan, FaultState):
+            fs = plan
+        else:
+            fs = plan.lower(self.n_nodes, t, self.device)
+        lead = tuple(state.time.shape)
+        if lead and fs.crash_at.dim() < 1 + len(lead):
+            fs = FaultState(*[a.expand(lead + tuple(a.shape)).contiguous() for a in fs])
+        return net, state._replace(faults=fs)
+
     # -- the send path (createMessageArrival, Network.java:469-487) ----------
-    def latency_arrivals(self, state, mask, from_idx, to_idx, send_time, mtype):
+    def latency_arrivals(self, state, mask, from_idx, to_idx, send_time, mtype, t: int):
         """The createMessageArrival kernel shared by the generic store and
         protocol-specific message channels: ticks sender counters (even for
         dropped sends, Network.java:476-477), samples the latency model via
         the counter RNG, applies the partition and down filters (the JAX
         package's discard-time filter has no caller and is not ported).
         mask is [R, K]; send_time an int or a tensor that broadcasts to
-        [R, K]; mtype an int or a per-row tensor.  Returns
-        (state, ok, arrival)."""
+        [R, K]; mtype an int or a per-row tensor; `t` the tick that sends
+        (the fault lanes' clock).  Returns (state, ok, arrival)."""
         state = state._replace(send_ctr=state.send_ctr + 1)
         return self._send_rows(state, mask, from_idx, to_idx, send_time, mtype,
-                               state.send_ctr[:, None])
+                               state.send_ctr[:, None], t)
 
-    def _send_rows(self, state, mask, from_idx, to_idx, send_time, mtype, ctr):
+    def _send_rows(self, state, mask, from_idx, to_idx, send_time, mtype, ctr, t: int):
         """latency_arrivals' body, with the send counter each row hashes
         given as `ctr` (broadcasting to [R, K]) and send_ctr left as it is:
         rows of several emissions go through in one call, each row with
@@ -371,6 +413,25 @@ class BatchedNetwork:
             & ~take(state.down, to_idx)
             & (pid_f == pid_t)
         )
+        if self.faults is not None:
+            # fault choke point 1 (send): the sender counters ticked above;
+            # crash/partition/silence/drop suppress rows, inflation and
+            # Byzantine delay rewrite the latency.  Each row's drop draw
+            # hashes its own emission's counter `ctr`.  The JAX package's
+            # discard-time filter (lat < INT_MAX by default) can fail only
+            # on a rewritten latency, so only that one is filtered
+            fs = state.faults
+            mrows = mtype if isinstance(mtype, torch.Tensor) else torch.full_like(from_idx, mtype)
+            lat_f = inflate_latency(self.faults, fs, t, from_idx, mrows, lat)
+            supp = send_suppress(self.faults, fs, t, from_idx, to_idx, mrows,
+                                 state.seed[:, None], ctr, send_time)
+            ok_f = ok & ~supp & (lat_f < INT_MAX)
+            state = state._replace(faults=fs._replace(
+                dropped_by_fault=count_by_type(fs.dropped_by_fault, ok & supp, mrows),
+                delayed_by_fault=count_by_type(fs.delayed_by_fault, ok_f & (lat_f != lat), mrows),
+            ))
+            ok = ok_f
+            arrival = (send_time + lat_f).to(torch.int32)
         return state, ok, arrival
 
     def apply_emission(self, state: SimState, em: Emission, t: int) -> SimState:
@@ -413,7 +474,7 @@ class BatchedNetwork:
             ], dim=1)
             state, ok, arrival = self._send_rows(
                 state, cat("mask"), cat("from_idx"), cat("to_idx"), cat("send_time"),
-                cat("mtype"), state.send_ctr[:, None] + ctr,
+                cat("mtype"), state.send_ctr[:, None] + ctr, t,
             )
             state = state._replace(send_ctr=state.send_ctr + len(drawn))
             sizes = [rw["mask"].shape[1] for rw in drawn]
@@ -575,10 +636,12 @@ class BatchedNetwork:
         """The flat delivery VIEW protocol.deliver sees: msg_* columns are
         [R, D] concatenations of the window's wheel rows and the overflow
         lane, ids and types widened to int32 (the one widening point of
-        the narrow-lane plan).  Returns (vstate, due, deliver, rows):
-        `due` is arrival <= t, `deliver` additionally applies the
-        delivery-time down/partition discards (Network.java:606,
-        :518-520), `rows` are the window's wheel rows."""
+        the narrow-lane plan).  Returns (vstate, due, deliver, rows,
+        fault_supp): `due` is arrival <= t, `deliver` additionally applies
+        the delivery-time down/partition discards (Network.java:606,
+        :518-520) and the fault lanes', `rows` are the window's wheel rows,
+        `fault_supp` the due rows the fault lanes discard (None without
+        a FaultConfig)."""
         r = state.ovf_valid.shape[0]
         # the q distinct rows covering ticks (t-q, t]: floor modulo, since
         # t - q + 1 is negative near t = 0
@@ -600,6 +663,13 @@ class BatchedNetwork:
         pid_f = self.partition_id(state, take(state.x, view_from))
         pid_t = self.partition_id(state, take(state.x, view_to))
         deliver = due & ~take(state.down, view_to) & (pid_f == pid_t)
+        fault_supp = None
+        if self.faults is not None:
+            # fault choke point 2 (arrival): a fault-crashed destination or
+            # an active partition discards the row; it still leaves the
+            # store like any other due row
+            fault_supp = due & deliver_suppress(self.faults, state.faults, t, view_from, view_to)
+            deliver = deliver & ~fault_supp
         vstate = state._replace(
             msg_valid=view(state.msg_valid, state.ovf_valid),
             msg_arrival=view_arrival,
@@ -608,20 +678,24 @@ class BatchedNetwork:
             msg_type=view(state.msg_type, state.ovf_type).to(torch.int32),
             msg_payload=view(state.msg_payload, state.ovf_payload),
         )
-        return vstate, due, deliver, rows
+        return vstate, due, deliver, rows, fault_supp
 
     def _deliver_and_clear(self, state: SimState, t: int):
         """One tick's delivery (the JAX package's fused form): gather the
         view, tick receiver counters (size-0 task types skipped,
         Network.java:522-526), run protocol.deliver on it, then clear the
         delivered entries.  Returns (state, emissions)."""
-        vview, due, deliver, rows = self.delivery_view(state, t)
+        vview, due, deliver, rows, fault_supp = self.delivery_view(state, t)
         view_to, view_type = vview.msg_to, vview.msg_type
         sizes = self._msg_sizes[view_type.to(torch.int64)]
         dm = deliver & (sizes > 0)
         received, bytes_received = add_masked((state.msg_received, state.bytes_received),
                                               view_to, (dm.to(torch.int32), sizes), dm)
         vstate = vview._replace(msg_received=received, bytes_received=bytes_received)
+        if fault_supp is not None:
+            fs = vstate.faults
+            vstate = vstate._replace(faults=fs._replace(
+                dropped_by_fault=count_by_type(fs.dropped_by_fault, fault_supp, view_type)))
         pstate, emissions = self.protocol.deliver(self, vstate, deliver, t)
         return self._clear_visited_rows(pstate, state, rows, due), emissions
 

@@ -64,12 +64,24 @@ def _mix32(x):
     return x
 
 
-def hash32_u(*parts):
-    """hash32 as its uint32 value in an int64 tensor."""
-    h = _GOLDEN
+# the hash's state before its first part
+HASH32_START = _GOLDEN
+
+
+def hash32_absorb(h, *parts):
+    """The hash's state after absorbing `parts` into state `h` (a uint32
+    value, int or int64 tensor): hash32_u(*parts) is
+    hash32_absorb(HASH32_START, *parts), so a prefix of parts shared by
+    several hashes is absorbed once."""
     for p in parts:
         p = _u32(p)
         h = _mix32(h ^ ((p + _GOLDEN + ((h << 6) & M32) + (h >> 2)) & M32))
+    return h
+
+
+def hash32_u(*parts):
+    """hash32 as its uint32 value in an int64 tensor."""
+    h = hash32_absorb(HASH32_START, *parts)
     if not isinstance(h, torch.Tensor):
         h = torch.tensor(h, dtype=torch.int64)
     return h
@@ -83,5 +95,9 @@ def hash32(*parts):
 
 def uniform_u01(*parts):
     """Deterministic float32 uniform in [0, 1) from integer parts."""
-    bits = hash32_u(*parts) >> 8
-    return bits.to(torch.float32) * (1.0 / (1 << 24))
+    return u01(hash32_u(*parts))
+
+
+def u01(h: torch.Tensor) -> torch.Tensor:
+    """uniform_u01 of a hash's uint32 value."""
+    return (h >> 8).to(torch.float32) * (1.0 / (1 << 24))

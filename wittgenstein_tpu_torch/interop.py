@@ -14,17 +14,27 @@ OptimisticP2PSignature, SanFerminCappos and ENRGossiping carry only bool
 and int32 leaves (ENR's per-replica clock `last_t` among them), so they
 declare no `WORD_LEAVES` (nor `PROTO_KEYS`), as PingPong, Dfinity, Casper
 and Paxos do not.  With the two, both packages can start from one
-state and be compared leaf by leaf.  This module imports nothing of JAX.
+state and be compared leaf by leaf.
+
+A fault side-car (`faults`, the JAX package's FaultState as numpy leaves,
+or a mapping of them) comes across as the port's FaultState and goes back
+as a dict of numpy leaves.  ETHPoW's state, which has no proto and no
+message store, crosses too: a tree whose fields are EthPowState's (the
+JAX package's dataclass, a NamedTuple or a mapping) becomes the port's
+EthPowState, and `state_to_numpy` of an EthPowState gives the dict of its
+leaves.  This module imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Mapping
 
 import numpy as np
 import torch
 
 from .engine.core import SimState
+from .faults.state import FaultState
 
 
 def ported_protocols() -> tuple:
@@ -78,6 +88,8 @@ def _fields(tree) -> Mapping[str, Any]:
         return tree
     if hasattr(tree, "_asdict"):
         return tree._asdict()
+    if dataclasses.is_dataclass(tree):
+        return {f.name: getattr(tree, f.name) for f in dataclasses.fields(tree)}
     raise TypeError(f"expected a SimState-like NamedTuple or a mapping, got {type(tree)}")
 
 
@@ -91,8 +103,13 @@ def _to_tensor(a, device) -> torch.Tensor:
 
 
 def state_from_numpy(tree, device) -> SimState:
-    """The JAX package's state, as numpy leaves, as the port's SimState."""
+    """The JAX package's state, as numpy leaves, as the port's SimState (or
+    EthPowState)."""
+    from .protocols.ethpow_batched import EthPowState
+
     fields = _fields(tree)
+    if set(fields) == set(EthPowState._fields):
+        return EthPowState(**{f: _to_tensor(fields[f], device) for f in EthPowState._fields})
     missing = set(SimState._fields) - set(fields)
     if missing:
         raise ValueError(f"state is missing fields {sorted(missing)}")
@@ -101,6 +118,9 @@ def state_from_numpy(tree, device) -> SimState:
         v = fields[f]
         if f == "proto":
             out[f] = {k: _to_tensor(a, device) for k, a in _fields(v).items()}
+        elif f == "faults" and v not in ((), None):
+            fv = _fields(v)
+            out[f] = FaultState(*[_to_tensor(fv[k], device) for k in FaultState._fields])
         elif f in ("tele", "faults"):
             if v not in ((), None):
                 raise NotImplementedError(f"the port carries no {f} side-car")
@@ -121,13 +141,20 @@ def state_to_numpy(state: SimState) -> dict:
     """The port's SimState as a dict of numpy leaves in the JAX package's
     dtypes (proto as a nested dict; empty side-cars stay ()).  The word
     leaves are those of the ported protocol the proto's keys identify
-    (`protocol_of`); a state of no such protocol has none."""
+    (`protocol_of`); a state of no such protocol has none.  An EthPowState
+    gives the dict of its leaves."""
+    from .protocols.ethpow_batched import EthPowState
+
+    if isinstance(state, EthPowState):
+        return {f: _to_numpy(v, False) for f, v in state._asdict().items()}
     protocol = protocol_of(state.proto)
     out = {}
     for f in SimState._fields:
         v = getattr(state, f)
         if f == "proto":
             out[f] = {k: _to_numpy(a, is_word_leaf(protocol, k)) for k, a in v.items()}
+        elif isinstance(v, FaultState):
+            out[f] = {k: _to_numpy(a, False) for k, a in v._asdict().items()}
         elif isinstance(v, torch.Tensor):
             out[f] = _to_numpy(v, False)
         else:

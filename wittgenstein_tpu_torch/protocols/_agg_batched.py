@@ -306,7 +306,7 @@ class BitsetAggBase(BatchedProtocol):
         to_idx = to_idx.to(torch.int32)
         # masked rows may carry junk levels; clamp so every index is in range
         level = torch.clamp(level.to(torch.int32), 1, self.n_levels - 1)
-        state, ok, arrival = net.latency_arrivals(state, mask, from_idx, to_idx, t + 1, level)
+        state, ok, arrival = net.latency_arrivals(state, mask, from_idx, to_idx, t + 1, level, t)
         # receiver traffic counters tick at send time (the JAX package's
         # _send_stacked explains why)
         okc = ok.to(torch.int32)
