@@ -61,12 +61,32 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 x 600000 ms through the event loop, 20 BatchedMinerEnv
                 steps of 1000 ms, PingPong at 64 nodes x 2 x 300 ms under
                 every fault lane (all_lanes_plan) and the flagship-shaped
-                Handel at 64 nodes x 2 x 300 ms under a silence bloc
+                Handel at 64 nodes x 2 x 300 ms under a silence bloc;
+                the telemetry cases: PingPong at 64 nodes x 2 x 300 ms
+                on the wheel with telemetry on (TELE_CFG), the same under
+                all_lanes_plan, and the flagship-shaped Handel at 64
+                nodes with telemetry on a batch whose clocks are 0 and 7
+                ms (per-replica clock groups), 100 ms
   5. flagship   the Handel main path: make_handel(flagship_params(4096)),
                 replicate_state(R=16), run_ms_batched in 20-ms chunks up to
                 1000 ms with stop_when_done; every live node must finish and
                 popcount_words, popcount_binop and cand_score must have
                 launched in this run
+  5b. telemetry the flagship again with the telemetry side-car
+                (make_handel(flagship_params(4096), telemetry=TELE_CFG):
+                TelemetryConfig(snapshots=128, snapshot_every_ms=10)) on
+                replicas 0-3 of its seeds (R = 4: both runs are host-bound,
+                so R = 16 would only take longer), for exactly the
+                flagship phase's executed ticks, then the rest of the
+                horizon with stop_when_done, with tele_profile (ticks
+                100-109, stop test on, as the flagship's window) inside
+                the run: every non-tele leaf equals replicas 0-3 of the
+                flagship phase's final states, every node is done, sent ==
+                delivered + discarded + dropped + pending per replica with
+                the exact store census, the ring's done counts equal
+                done_at's CDF at each written slot's tick, the popcount
+                family launches; ms and kernels a tick beside the plain
+                flagship's
   6. profile    ticks 100-109 of the flagship run in a torch.profiler
                 window: kernels and device time per tick,
                 the device's busy share of a tick, the ops that take the
@@ -97,6 +117,17 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 state for its seed, replica 0 equals the JAX package's
                 seed-0 run (FPP_R0), both fault counters are nonzero, and
                 the occupancy kernels launch; fpp_profile inside the run
+ 10b. pingpong_tele  the pingpong phase's run with the telemetry side-car
+                (TELE_CFG), ppt_profile inside it: every non-tele leaf
+                equals the pingpong phase's final states, the store
+                invariant and the ring's CDF hold per replica, the jump
+                census is positive and each replica's tick census equals
+                jump_stats["ticks"], pack_occupied, lowest_set_bit and
+                popcount_words launch; ms and kernels an iteration beside
+                the plain run's.  Then the occupancy probe:
+                run_ms_occupancy (per-tick steps, no jumps) on replicas
+                0-255 for 100 ms on the card and on replicas 0-3 on the
+                CPU, whose marks and states must be equal
  11. dfinity    make_dfinity(max_heights=64), R=1024, 15000 ms: nothing may
                 drop, every replica's head height (its highest notarized
                 block) reaches 4, and pack_occupied must have launched
@@ -194,8 +225,15 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 45%: nothing overflows, the selfish mean revenue ratio is
                 above 0.5, replica 0 equals the JAX package's seed-0 run
                 (ETH_R0); each config's ethpow_<config>_profile is a
-                20-iteration window from iteration 100.  No hand-written
-                kernel on its path
+                20-iteration window from iteration 100.  The
+                ethpow_x_range line: the smallest and largest argument
+                x = -hp/cand_diff of every threshold the three runs took
+                (tracked on the card, read once at the end), which must
+                lie in the covered range -x in EXP_COVERED = [2^-20,
+                2^-6), where exp_f32 is XLA's exp bit for bit; and the
+                thresholds on CUDA against the CPU over every float32 of
+                that range (117 440 512 arguments), which must be equal.
+                No hand-written kernel on its path
  25. miner_env  BatchedMinerEnv at create_agent's configuration (CITIES
                 builder, NetworkFixedLatency(1000), 10 miners, agent at
                 45%), R = 4096, 150 steps of 1000 ms (cut from 600: the
@@ -213,7 +251,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 others', and
                 popcount_words, popcount_binop and cand_score launch;
                 attack_profile is ticks 200-209 inside the run
- 27. phase_seconds  each phase's wall seconds (profiles and checks included)
+ 27. phase_seconds  each phase's wall seconds (profiles and checks included;
+                telemetry and pingpong_tele among them)
  28. launches_by_path  each path's launch count of every form
  29. kernels    one line listing every ported kernel with its numbers
 
@@ -222,6 +261,8 @@ The last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import hashlib
 import itertools
 import json
@@ -236,7 +277,7 @@ import numpy as np
 import torch
 
 from wittgenstein_tpu_torch.core.registries import builder_name
-from wittgenstein_tpu_torch.engine import replicate_state
+from wittgenstein_tpu_torch.engine import map_state, replicate_state
 from wittgenstein_tpu_torch.faults import FaultConfig, FaultPlan, lower_plans
 from wittgenstein_tpu_torch.interop import state_to_numpy
 from wittgenstein_tpu_torch.ops import bitops, kernels
@@ -246,7 +287,12 @@ from wittgenstein_tpu_torch.protocols.dfinity_batched import make_dfinity
 from wittgenstein_tpu_torch.protocols.enr_batched import make_enr
 from wittgenstein_tpu_torch.protocols.enr_gossiping import ENRParameters
 from wittgenstein_tpu_torch.protocols.ethpow import ETHPoWParameters
-from wittgenstein_tpu_torch.protocols.ethpow_batched import BatchedEthPow, replicate_ethpow
+from wittgenstein_tpu_torch.protocols.ethpow_batched import (
+    EXP_COVERED,
+    BatchedEthPow,
+    exp_f32,
+    replicate_ethpow,
+)
 from wittgenstein_tpu_torch.protocols.ethpow_env import BatchedMinerEnv, chain_count
 from wittgenstein_tpu_torch.protocols.handel_env import BatchedAttackEnv
 from wittgenstein_tpu_torch.protocols.gsf import GSFSignatureParameters
@@ -273,6 +319,7 @@ from wittgenstein_tpu_torch.protocols.sanfermin_cappos import SanFerminParameter
 from wittgenstein_tpu_torch.protocols.sanfermin_cappos_batched import make_sanfermin_cappos
 from wittgenstein_tpu_torch.protocols.slush import SlushParameters
 from wittgenstein_tpu_torch.protocols.snowflake import SnowflakeParameters
+from wittgenstein_tpu_torch.telemetry import TelemetryConfig
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak (NVIDIA data sheet, at 700 W)
 INT_OPS_PER_S = 67e12  # 32-bit rate outside the tensor cores (same sheet's fp32)
@@ -416,6 +463,13 @@ ENR_CHURN = dict(nodes=24, total_peers=4, max_peers=6, number_of_different_capab
                  time_to_change=6000, changing_nodes=1, discard_time=100)
 # ETHPoW: the reference's 10 miners (try_miner, create_agent), the JAX
 # tests' 45% attack, b_max 512
+# the telemetry side-car on the two main paths: one ring slot per 10 ms,
+# enough for the flagship's 1000 ms and PingPong's 700
+TELE_CFG = TelemetryConfig(snapshots=128, snapshot_every_ms=10)
+TELE_REPLICAS = 4  # the telemetry phase: the flagship's replicas 0-3 (host-bound either way)
+OCC_REPLICAS = 256  # pingpong_tele's occupancy probe: a slice of the run
+INT32_MAX = 2**31 - 1
+OCC_MS = 100
 ETH_MINERS = 10
 ETH_B_MAX = 512
 ETH_REPLICAS = 4096
@@ -1243,6 +1297,21 @@ def _faults_case(make, plan, ms, chunk):
     return run
 
 
+def _tele_case(make, ms, chunk, clocks=None):
+    """2 replicas run in chunks as an IDENTITY case; with `clocks` the
+    batch starts on clocks (0, c): replica 1 advanced c ms first."""
+    def run(dev):
+        net, state = make(dev)
+        states = replicate_state(state, 2)
+        if clocks:
+            ahead = net.run_ms_batched(states, clocks[1])
+            states = map_state(lambda a, b: torch.stack([a[0], b[1]]), states, ahead)
+        for _ in range(ms // chunk):
+            states = net.run_ms_batched(states, chunk)
+        return state_to_numpy(states)
+    return run
+
+
 IDENTITY_AGENT = dict(byz_class_name="ETHMinerAgent", byz_mining_ratio=0.45)
 # cases that run their own way: case -> (run on a device -> numpy leaves, ms)
 IDENTITY_RUNS = {
@@ -1256,6 +1325,14 @@ IDENTITY_RUNS = {
     "handel_silence": (_faults_case(
         lambda dev: make_handel(flagship_params(64), score_cache=True, device=dev),
         FaultPlan("silence_bloc").silence(list(range(51, 64)), start=0), 300, 100), 300),
+    "pingpong_tele": (_tele_case(lambda dev: make_pingpong(64, telemetry=TELE_CFG, device=dev),
+                                 300, 300), 300),
+    "faults_pingpong_tele": (_faults_case(
+        lambda dev: make_pingpong(64, telemetry=TELE_CFG, device=dev), all_lanes_plan(64),
+        300, 300), 300),
+    "handel_tele_clocks_0_7": (_tele_case(lambda dev: make_handel(
+        flagship_params(64), score_cache=True, telemetry=TELE_CFG, device=dev),
+        100, 100, clocks=(0, 7)), 100),
 }
 
 
@@ -1309,6 +1386,10 @@ def identity() -> None:
             if isinstance(out.get("faults"), dict):
                 row["dropped_by_fault"] = int(out["faults"]["dropped_by_fault"].sum())
                 row["delayed_by_fault"] = int(out["faults"]["delayed_by_fault"].sum())
+            if isinstance(out.get("tele"), dict):
+                row["tele_ticks"] = out["tele"]["ticks"].tolist()
+                row["tele_lat_sent"] = int(out["tele"]["lat_sent"].sum())
+                row["time"] = out["time"].tolist()
             if "n_blocks" in out:
                 row.update({"n_blocks": out["n_blocks"].tolist(),
                             "overflowed": out["overflowed"].tolist()})
@@ -1386,11 +1467,13 @@ def drive(params, replicas: int, make=make_handel, ms: int = SIM_MS, profile: st
 
 def flagship() -> dict:
     """The flagship Handel at 4096 nodes, R = FLAGSHIP_REPLICAS, SIM_MS
-    ms, with its profile window inside the run."""
+    ms, with its profile window inside the run.  Its final states stay in
+    `_states` for the telemetry phase."""
     out = drive(flagship_params(4096), FLAGSHIP_REPLICAS, profile="profile")
     out["_done_at"] = out["_states"].done_at.cpu().numpy()  # attack_env's reference
-    del out["_net"], out["_states"]
+    del out["_net"]
     window = out.pop("_window")
+    out["_kernels_per_tick"] = window["kernels_per_tick"]
     if not out["_all_live_done"]:
         raise AssertionError(f"flagship: not every live node finished: {out}")
     for name in ("popcount_words", "popcount_binop", "cand_score"):
@@ -1399,6 +1482,121 @@ def flagship() -> dict:
     emit({"phase": "flagship", **{k: v for k, v in out.items() if not k.startswith("_")}})
     emit(window)
     return out
+
+
+def _differing_leaves(a, b, rows=slice(None)) -> list:
+    """The leaves in which two batched states differ on the replicas
+    `rows`, compared on the card; the side-cars are left out (a run may
+    carry one the other does not)."""
+    differ = []
+    for name in a._fields:
+        va, vb = getattr(a, name), getattr(b, name)
+        if name in ("tele", "faults"):
+            continue
+        if isinstance(va, dict):
+            differ += [f"proto.{k}" for k, v in va.items() if not torch.equal(v[rows], vb[k][rows])]
+        elif isinstance(va, torch.Tensor) and not torch.equal(va[rows], vb[rows]):
+            differ.append(name)
+    return differ
+
+
+def _tele_checks(tag: str, states) -> dict:
+    """The telemetry side-car's checks on a final batched state, read once:
+    the store invariant per replica with the exact census, the per-mtype
+    drops against the store's, and the ring's done counts against the
+    host-side CDF of done_at at each written slot's tick."""
+    tele = {k: v.cpu().numpy() for k, v in states.tele._asdict().items()}
+    pending = (states.msg_valid.sum((-2, -1)) + states.ovf_valid.sum(-1)).cpu().numpy()
+    balance = tele["sent"].sum(-1) - (tele["delivered"].sum(-1) + tele["discarded"].sum(-1)
+                                      + tele["dropped"].sum(-1) + pending)
+    if balance.any():
+        raise AssertionError(f"{tag}: sent != delivered + discarded + dropped + pending on "
+                             f"{int((balance != 0).sum())} replicas")
+    if not np.array_equal(tele["dropped"].sum(-1), states.dropped.cpu().numpy()):
+        raise AssertionError(f"{tag}: per-mtype drops differ from the store's")
+    # done_at's CDF at each slot's tick: the done ticks sorted, not-done
+    # last, then a search per slot (on the card)
+    done = states.done_at
+    ranked = torch.where(done > 0, done, INT32_MAX).sort(-1).values
+    cdf = torch.searchsorted(ranked, states.tele.snap_time.contiguous(), right=True)
+    snap_t, snap_done = tele["snap_time"], tele["snap_done"]
+    written = snap_t >= 0
+    if not np.array_equal(np.where(written, snap_done, 0),
+                          np.where(written, cdf.cpu().numpy(), 0)):
+        raise AssertionError(f"{tag}: the ring's done counts differ from done_at's CDF")
+    return {"snapshots_written": int(written.sum()),
+            "sent": int(tele["sent"].sum()), "delivered": int(tele["delivered"].sum()),
+            "discarded": int(tele["discarded"].sum()), "lat_sent": int(tele["lat_sent"].sum()),
+            "lat_filtered": int(tele["lat_filtered"].sum()),
+            "wheel_fill_hwm": int(tele["wheel_fill_hwm"].max()),
+            "ovf_hwm": int(tele["ovf_hwm"].max()),
+            "ticks_p10_p50_p90": _percentiles(tele["ticks"]),
+            "jumps_total": int(tele["jumps"].sum()), "jumped_ms_total": int(tele["jumped_ms"].sum()),
+            "_ticks": tele["ticks"]}
+
+
+def telemetry(plain) -> dict:
+    """The flagship with the telemetry side-car (TELE_CFG) on replicas
+    0-3 of the flagship phase's seeds (R = TELE_REPLICAS), for exactly
+    the flagship phase's executed ticks (`plain["ticks"]`: the plain
+    batch's replicas 0-3 stepped until all 16 were done) and then the
+    rest of the horizon with stop_when_done, which steps nothing more;
+    tele_profile (ticks 100-109, with the per-tick stop test, as the
+    flagship's window) inside the run.  Every non-tele leaf equals
+    replicas 0-3 of the flagship phase's final states, the store
+    invariant and the ring's CDF hold per replica, every node is done,
+    the popcount family launches; ms and kernels a tick beside the plain
+    flagship's."""
+    ticks = SIM_MS if plain is None else plain["ticks"]
+    torch.cuda.synchronize()
+    t_build = time.perf_counter()
+    net, state = make_handel(flagship_params(FLAGSHIP_NODES), telemetry=TELE_CFG)
+    states = replicate_state(state, TELE_REPLICAS)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_build
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    states = net.run_ms_batched(states, PROFILE_FROM)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    states, window = _profile_ticks(net, states, LOCKSTEP_PROFILE_TICKS, "tele_profile", True)
+    t0 = time.perf_counter()
+    states = net.run_ms_batched(states, ticks - PROFILE_FROM - LOCKSTEP_PROFILE_TICKS)
+    torch.cuda.synchronize()
+    wall = (wall + time.perf_counter() - t0) * ticks / (ticks - LOCKSTEP_PROFILE_TICKS)
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    states = net.run_ms_batched(states, SIM_MS - ticks, True)
+    window["device_busy_share"] = window["device_ms_per_tick"] / (wall / ticks * 1e3)
+    checks = _tele_checks("telemetry", states)
+    checks.pop("_ticks")
+    differ = None if plain is None else _differing_leaves(
+        states, map_state(lambda a: a[:TELE_REPLICAS], plain["_states"]))
+    done = states.done_at.cpu().numpy()
+    live_done = np.where(states.down.cpu().numpy(), 1, done)
+    row = {"phase": "telemetry", "nodes": FLAGSHIP_NODES, "replicas": TELE_REPLICAS,
+           "build_s": build_s, "wall_s": wall, "ticks": ticks, "ms_per_tick": wall / ticks * 1e3,
+           "kernels_per_tick": window["kernels_per_tick"],
+           "device_ms_per_tick": window["device_ms_per_tick"],
+           "device_busy_share": window["device_busy_share"],
+           "launches": launches, "launches_per_tick": {k: v / ticks for k, v in launches.items()},
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "plain_replicas": FLAGSHIP_REPLICAS,
+           "plain_ms_per_tick": None if plain is None else plain["ms_per_tick"],
+           "plain_kernels_per_tick": None if plain is None else plain["_kernels_per_tick"],
+           "equal_plain": None if plain is None else not differ, **checks}
+    emit(row)
+    emit(window)
+    if differ:
+        raise AssertionError(f"telemetry: the instrumented flagship differs from plain in {differ}")
+    if not (live_done > 0).all():
+        raise AssertionError("telemetry: not every live node finished")
+    if not checks["lat_sent"]:
+        raise AssertionError("telemetry: no send counted")
+    for name in ("popcount_words", "popcount_binop", "cand_score"):
+        if launches[name] <= 0:
+            raise AssertionError(f"telemetry: {name} kernel never launched")
+    return row
 
 
 def byzantine() -> dict:
@@ -1527,6 +1725,77 @@ def pingpong() -> dict:
     if "pack_occupied_rows" not in window["hand_kernels_per_iteration"]:
         raise AssertionError("pp_profile: no pack_occupied_rows kernel in the window")
     out["_states"] = states  # faults_pingpong's neutral reference
+    return out
+
+
+def occupancy_probe() -> dict:
+    """run_ms_occupancy, per-tick steps without jumps, on the first
+    OCC_REPLICAS replicas of the PingPong run for OCC_MS ms on the card,
+    and on its first four on the CPU: each replica's high-water marks and
+    state equal across the two."""
+    net, state = make_pingpong(PP_NODES, telemetry=TELE_CFG)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, marks = net.run_ms_occupancy(replicate_state(state, OCC_REPLICAS), OCC_MS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cnet, cstate = make_pingpong(PP_NODES, telemetry=TELE_CFG, device="cpu")
+    cout, cmarks = cnet.run_ms_occupancy(replicate_state(cstate, 4), OCC_MS)
+    got = state_to_numpy(map_state(lambda a: a[:4], out))
+    bad = _leaf_diff(state_to_numpy(cout), got)
+    fill, ovf = marks["wheel_fill_hwm"].cpu().numpy(), marks["overflow_hwm"].cpu().numpy()
+    if not (np.array_equal(fill[:4], cmarks["wheel_fill_hwm"].numpy())
+            and np.array_equal(ovf[:4], cmarks["overflow_hwm"].numpy())):
+        bad.append("marks")
+    if bad:
+        raise AssertionError(f"occupancy probe: CUDA and CPU differ in {bad[:10]}")
+    if not (fill > 0).all():
+        raise AssertionError("occupancy probe: a replica's wheel never filled")
+    return {"replicas": OCC_REPLICAS, "ms": OCC_MS, "wall_s": wall,
+            "ms_per_tick": wall / OCC_MS * 1e3,
+            "wheel_fill_hwm_p10_p50_p90": _percentiles(fill), "wheel_fill_hwm_max": int(fill.max()),
+            "overflow_hwm_max": int(ovf.max()), "cpu_equal_replicas": 4}
+
+
+def pingpong_tele(plain, plain_states) -> dict:
+    """The pingpong phase's run with the telemetry side-car (TELE_CFG),
+    ppt_profile inside it: every non-tele leaf equals the plain run's
+    (`plain_states`), the store invariant and the ring's CDF hold per
+    replica, the jump census is positive and each replica's tick census
+    equals the loop's own count (`jump_stats`), and the occupancy kernels
+    launch; ms and kernels an iteration beside the plain run's; then the
+    occupancy probe."""
+    t_build = time.perf_counter()
+    net, state = make_pingpong(PP_NODES, telemetry=TELE_CFG)
+    states = replicate_state(state, PP_REPLICAS)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_build
+    states, wall, launches, window = _windowed_jumps(net, states, PP_MS, True, "ppt_profile")
+    checks = _tele_checks("pingpong_tele", states)
+    ticks = checks.pop("_ticks")
+    ticks_equal = bool(np.array_equal(ticks, net.jump_stats["ticks"].cpu().numpy()))
+    differ = None if plain_states is None else _differing_leaves(states, plain_states)
+    out = {**_jump_row("pingpong_tele", net, PP_REPLICAS, build_s, wall, launches, window,
+                       states),
+           "ms": PP_MS,
+           "plain_ms_per_iteration": None if plain is None else plain["ms_per_iteration"],
+           "plain_kernels_per_iteration": None if plain is None else plain["kernels_per_iteration"],
+           "plain_iterations": None if plain is None else plain["iterations"],
+           "equal_plain": None if differ is None else not differ,
+           "ticks_equal_jump_stats": ticks_equal, **checks}
+    del states
+    out["occupancy_probe"] = occupancy_probe()
+    emit(out)
+    emit(window)
+    if differ:
+        raise AssertionError(f"pingpong_tele: differs from the plain run in {differ}")
+    if not ticks_equal:
+        raise AssertionError("pingpong_tele: the tick census differs from jump_stats")
+    if checks["jumps_total"] <= 0 or not checks["sent"]:
+        raise AssertionError("pingpong_tele: no jump or no send counted")
+    for name in ("pack_occupied", "lowest_set_bit", "popcount_words"):
+        if launches[name] <= 0:
+            raise AssertionError(f"pingpong_tele: {name} kernel never launched")
     return out
 
 
@@ -1684,13 +1953,29 @@ def _torch_window_events(prof):
     return kern, ops
 
 
+@contextlib.contextmanager
+def _gc_paused():
+    """A window's reading builds ~10^5 small objects, and the cyclic
+    collector's passes over them took half of the reading's time; it
+    runs again when the reading is done."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
+
+
 def _check_reading(prof, phase: str) -> float:
     """Hold a window's raw-event reading equal to torch's own; returns the
     seconds torch's reading took."""
     t0 = time.perf_counter()
-    want = _torch_window_events(prof)
+    with _gc_paused():
+        want = _torch_window_events(prof)
     torch_s = time.perf_counter() - t0
-    kern, ops = _window_events(prof)
+    with _gc_paused():
+        kern, ops = _window_events(prof)
     if (kern, ops) != want:
         bad = sorted(k for k in set(ops) | set(want[1]) if ops.get(k) != want[1].get(k))
         raise AssertionError(f"{phase}: the raw-event reading differs from torch's: "
@@ -1701,7 +1986,8 @@ def _check_reading(prof, phase: str) -> float:
 def _window_reading(prof, phase: str):
     """(kern, the aten ops sorted by self device time, most first) of a
     window."""
-    kern, ops = _window_events(prof)
+    with _gc_paused():
+        kern, ops = _window_events(prof)
     if not kern:
         raise AssertionError(f"{phase}: the profiler recorded no device activity")
     top = sorted(ops.items(), key=lambda kv: kv[1][1], reverse=True)
@@ -2220,10 +2506,33 @@ def ethpow() -> dict:
     window from iteration 100.  No hand-written kernel on its path."""
     out = {"phase": "ethpow", "replicas": ETH_REPLICAS, "ms": ETH_MS, "configs": {}}
     total_launches = {k.name: 0 for k in kernels.KERNELS}
+    # the exp check's CPU half runs in a worker beside the runs, which
+    # hold one core of the host
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    try:
+        return _ethpow_runs(out, total_launches, pool.apply_async(exp_digests, ("cpu",)))
+    finally:
+        pool.terminate()
+        pool.join()
+
+
+def _ethpow_runs(out: dict, total_launches: dict, cpu_digests) -> dict:
+    """ethpow's three runs, then the x-range line and the exp check."""
+    x_lo = x_hi = None  # the thresholds' arguments over every run, on the card
     for config, kw in ETH_CONFIGS.items():
         torch.cuda.synchronize()
         t_build = time.perf_counter()
         net = BatchedEthPow(ETHPoWParameters(number_of_miners=ETH_MINERS, **kw), b_max=ETH_B_MAX)
+        x_range = [None, None]
+
+        def thresholds(cand_diff, net=net, x_range=x_range):
+            x = -net.hp_per_10ms / cand_diff
+            lo, hi = x.amin(), x.amax()
+            x_range[0] = lo if x_range[0] is None else torch.minimum(x_range[0], lo)
+            x_range[1] = hi if x_range[1] is None else torch.maximum(x_range[1], hi)
+            return BatchedEthPow.thresholds(net, cand_diff)
+
+        net.thresholds = thresholds
         states = replicate_ethpow(net.init_state(), ETH_REPLICAS)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t_build
@@ -2264,9 +2573,61 @@ def ethpow() -> dict:
         _check_replica0(f"ethpow {config}", r0, ETH_R0[config])
         for k, v in launches.items():
             total_launches[k] += v
+        x_lo = x_range[0] if x_lo is None else torch.minimum(x_lo, x_range[0])
+        x_hi = x_range[1] if x_hi is None else torch.maximum(x_hi, x_range[1])
         del net, states
     out["launches"] = total_launches
+    # the arguments of every threshold the runs took, read once: they must
+    # lie in the covered range, where exp_f32 is XLA's exp bit for bit
+    x_min, x_max = float(x_lo), float(x_hi)
+    covered = EXP_COVERED[0] <= -x_max and -x_min < EXP_COVERED[1]
+    row = {"phase": "ethpow_x_range", "x_min": x_min, "x_max": x_max,
+           "log2_neg_x": [float(np.log2(-x_max)), float(np.log2(-x_min))],
+           "covered_neg_x": list(EXP_COVERED), "inside": covered, **exp_check(cpu_digests)}
+    emit(row)
+    if not covered:
+        raise AssertionError(f"ethpow: threshold arguments [{x_min}, {x_max}] leave the covered "
+                             f"range -x in {EXP_COVERED}")
+    if row["exp_cuda_differ"]:
+        raise AssertionError(f"ethpow: exp_f32 differs on CUDA from the CPU on "
+                             f"{row['exp_cuda_differ']} arguments")
+    out["x_range"] = [x_min, x_max]
     return out
+
+
+def _exp_binade(e: int, device: str) -> torch.Tensor:
+    """The thresholds 1 - exp_f32(x), as int32 bits, of every float32 x with
+    -x in [2^e, 2^(e+1)) (2^23 arguments), computed on `device`."""
+    first = int(np.float32(2.0**e).view(np.int32))
+    x = -torch.arange(first, first + (1 << 23), dtype=torch.int32).view(torch.float32)
+    return (1.0 - exp_f32(x.to(device))).view(torch.int32).cpu()
+
+
+def exp_digests(device: str) -> list:
+    """sha256 of _exp_binade's bits for each binade of EXP_COVERED."""
+    if device == "cpu":
+        torch.set_num_threads(4)
+    lo_e, hi_e = (int(np.log2(v)) for v in EXP_COVERED)
+    return [hashlib.sha256(_exp_binade(e, device).numpy().tobytes()).hexdigest()
+            for e in range(lo_e, hi_e)]
+
+
+def exp_check(cpu_digests) -> dict:
+    """exp_f32, and so the thresholds, on CUDA against the CPU over every
+    float32 x with -x in the covered range EXP_COVERED, binade by binade:
+    the CPU's digests come from a worker process that ran beside the
+    ETHPoW runs (`cpu_digests`, its async result); a binade whose digests
+    differ is recomputed here to count the arguments that differ."""
+    t0 = time.perf_counter()
+    cuda = exp_digests("cuda")
+    cpu = cpu_digests.get()
+    lo_e, hi_e = (int(np.log2(v)) for v in EXP_COVERED)
+    bad = 0
+    for e, a, b in zip(range(lo_e, hi_e), cpu, cuda):
+        if a != b:
+            bad += int((_exp_binade(e, "cpu") != _exp_binade(e, "cuda")).sum())
+    return {"exp_arguments": (hi_e - lo_e) << 23, "exp_binades": hi_e - lo_e,
+            "exp_cuda_differ": bad, "exp_check_s": time.perf_counter() - t0}
 
 
 def miner_env() -> dict:
@@ -2341,17 +2702,7 @@ def faults_pingpong(plain) -> dict:
           "delayed_by_fault": f.delayed_by_fault[0].tolist(),
           "pending": int(states.ovf_valid[0].sum() + states.msg_valid[0].sum()),
           "time": int(states.time[0])}
-    differ = []
-    if plain is not None:
-        for name in states._fields:
-            a, b = getattr(states, name), getattr(plain, name)
-            if isinstance(a, dict):
-                pairs = [(f"proto.{k}", v, b[k]) for k, v in a.items()]
-            elif isinstance(a, torch.Tensor):
-                pairs = [(name, a, b)]
-            else:  # the side-cars: faults only on this side, no telemetry
-                pairs = []
-            differ += [k for k, v, w in pairs if not torch.equal(v[half:], w[half:])]
+    differ = [] if plain is None else _differing_leaves(states, plain, slice(half, None))
     out = {**_jump_row("faults_pingpong", fnet, PP_REPLICAS, build_s, wall, launches, window,
                        states),
            "ms": PP_MS, "replica0": s0,
@@ -2565,8 +2916,8 @@ def paxos() -> dict:
     return out
 
 
-PHASES = ("kernels", "identity", "flagship", "byzantine", "pingpong", "faults_pingpong",
-          "dfinity", "gsf", "p2phandel", "handeleth2", "sanfermin", "casper", "paxos", "slush",
+PHASES = ("kernels", "identity", "flagship", "telemetry", "byzantine", "pingpong",
+          "faults_pingpong", "pingpong_tele", "dfinity", "gsf", "p2phandel", "handeleth2", "sanfermin", "casper", "paxos", "slush",
           "snowflake", "p2pflood", "optimistic", "cappos", "enr", "ethpow", "miner_env",
           "attack_env")
 
@@ -2601,11 +2952,16 @@ def main(argv) -> int:
     if want("identity"):
         identity()
         lap("identity")
-    flag_done = None
+    flag_done = flag = None
     if want("flagship"):
         runs["flagship"] = flag = flagship()
         flag_done = flag.pop("_done_at")
         lap("flagship")
+    if want("telemetry"):
+        runs["telemetry"] = telemetry(flag)
+        lap("telemetry")
+    if flag is not None:
+        del flag["_states"]
     if want("byzantine"):
         runs["byzantine"] = byz = byzantine()
         real = lowest_real_rows(byz.pop("_net"), byz.pop("_states"))
@@ -2621,6 +2977,9 @@ def main(argv) -> int:
     if want("faults_pingpong"):
         runs["faults_pingpong"] = faults_pingpong(pp_states)
         lap("faults_pingpong")
+    if want("pingpong_tele"):
+        runs["pingpong_tele"] = pingpong_tele(runs.get("pingpong"), pp_states)
+        lap("pingpong_tele")
     del pp_states
     if want("dfinity"):
         runs["dfinity"] = dfinity()

@@ -10,8 +10,10 @@ blocks above the private tip, and the agent's `agent_apply_action`
 (k = 0, a full release, and one past the withheld count) run on
 hand-built states.  The port's event loop equals its per-beat loop, and
 both equal the JAX package's, at horizons off the 10 ms grid and in
-chained calls.  The mining thresholds are held to one ulp of the JAX
-package's, and the CITIES node builder's columns to the JAX builder's.
+chained calls.  The mining thresholds equal the JAX package's bit for
+bit, and the port's `exp` equals `jnp.exp` over whole binades of its
+covered range; the CITIES node builder's columns equal the JAX
+builder's.
 """
 
 import dataclasses
@@ -200,13 +202,11 @@ def test_off_grid_horizons_match_jax(variant):
     assert_same_state(jax_numpy(js), state_to_numpy(ts), f"{variant} off-grid")
 
 
-def test_thresholds_within_one_ulp():
+def test_thresholds_equal_jnp():
     """thresh = 1 - exp(-hp / cand_diff) against jnp's, over every
     difficulty the JAX runs produced and 200000 more across their range:
-    the `exp` inside never more than one ulp apart (2^-24 in the
-    threshold, one grain of the trial's draw), and the float64 `exp` the
-    port takes matches XLA's float32 `exp` on all but a few of them
-    (torch's own float32 `exp` misses a few percent)."""
+    equal bit for bit, and every argument inside the port's covered range
+    EXP_COVERED (torch's own float32 `exp` misses a few percent)."""
     tnet = _tnet("selfish")
     jnet = _jnet("selfish")
     diffs = [_jax_run(v, SIM_MS)["diff"].ravel() for v in VARIANTS]
@@ -217,18 +217,30 @@ def test_thresholds_within_one_ulp():
     hp = np.array(jnet.hp_per_10ms)
     for cds, tag in ((run, "run"), (dense, "dense")):
         cd = np.repeat(cds[:, None], MINERS, 1)
-        want = np.asarray(1.0 - jnp.exp(-jnp.asarray(hp) / jnp.asarray(cd)))
+        x = -jnp.asarray(hp) / jnp.asarray(cd)
+        assert teth.EXP_COVERED[0] <= float(-x.max()) and float(-x.min()) < teth.EXP_COVERED[1]
+        want = np.asarray(1.0 - jnp.exp(x))
         got = tnet.thresholds(torch.from_numpy(cd)).numpy()
-        # 1 - thresh recovers the float32 exp exactly (Sterbenz)
-        e_want, e_got = np.float32(1) - want, np.float32(1) - got
-        ulp = np.abs(e_want.view(np.int32).astype(np.int64) - e_got.view(np.int32).astype(np.int64))
-        assert np.array_equal(ulp > 0, want != got)
-        assert ulp.max() <= 1, tag
+        assert np.array_equal(want.view(np.int32), got.view(np.int32)), tag
         f32 = (1.0 - torch.exp(-torch.from_numpy(hp) / torch.from_numpy(cd))).numpy()
         if tag == "dense":
-            assert (ulp > 0).mean() < 1e-3 and (f32 != want).mean() > 1e-2
-        else:
-            assert (ulp > 0).mean() < 1e-2
+            assert (f32 != want).mean() > 1e-2
+
+
+@pytest.mark.parametrize("e", [-11, -20])
+def test_exp_equals_jnp_over_a_whole_binade(e):
+    """Every float32 x with -x in [2^e, 2^(e+1)): the binade of a 45%
+    miner's argument at the genesis difficulty, and the covered range's
+    lowest binade.  exp_f32 equals jnp.exp on all 2^23 of them (the
+    float64 `exp` rounded to float32 does not)."""
+    lo = np.float32(2.0**e).view(np.int32)
+    x = -np.arange(lo, lo + (1 << 23), dtype=np.int32).view(np.float32)
+    assert -x.max() == 2.0**e and -x.min() < 2.0**(e + 1)
+    want = np.asarray(jnp.exp(jnp.asarray(x))).view(np.int32)
+    got = teth.exp_f32(torch.from_numpy(x)).numpy()
+    assert got.dtype == np.float32 and np.array_equal(got.view(np.int32), want)
+    rounded = torch.exp(torch.from_numpy(x).double()).float().numpy().view(np.int32)
+    assert (rounded != want).sum() > 0
 
 
 def _jax_state_at(net, mutate):

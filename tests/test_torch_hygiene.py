@@ -41,6 +41,7 @@ from wittgenstein_tpu_torch.protocols.optimistic_p2p_signature_batched import ma
 from wittgenstein_tpu_torch.protocols.p2pflood_batched import make_p2pflood
 from wittgenstein_tpu_torch.protocols.sanfermin_cappos import SanFerminParameters
 from wittgenstein_tpu_torch.protocols.sanfermin_cappos_batched import make_sanfermin_cappos
+from wittgenstein_tpu_torch.telemetry import TelemetryConfig
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = Path(wittgenstein_tpu_torch.__file__).resolve().parent
@@ -141,22 +142,43 @@ class _EveryFiveMs(BatchedProtocol):
 
 
 def test_unported_engine_options_raise():
-    """What the port still leaves out raises: the telemetry side-car and
-    tick intervals other than 1 and None; a fault switch that is not a
-    FaultConfig is refused; a quantum wider than the wheel fails as in the
-    JAX package."""
+    """What the port still leaves out raises: tick intervals other than 1
+    and None; a telemetry or fault switch that is not a TelemetryConfig or
+    a FaultConfig is refused; a quantum wider than the wheel fails as in
+    the JAX package."""
     proto = BatchedHandel(flagship_params(64))
     lat = registry_network_latencies.get_by_name(None)
     for p, kw, exc in (
-        (proto, dict(telemetry=object()), NotImplementedError),
+        (proto, dict(telemetry=object()), TypeError),
         (proto, dict(faults=object()), TypeError),
         (_EveryFiveMs(), {}, NotImplementedError),
         (_CoarseProbe(), dict(wheel_rows=512), ValueError),
     ):
         with pytest.raises(exc):
             BatchedNetwork(p, lat, 64, device="cpu", **kw)
-    # the wheel and the consensus-jump switch are ported
+    # the wheel, the consensus-jump switch and the telemetry side-car are
+    # ported
     BatchedNetwork(proto, lat, 64, device="cpu", wheel_rows=512, batched_jumps=True)
+    BatchedNetwork(proto, lat, 64, device="cpu", telemetry=TelemetryConfig(snapshots=4))
+
+
+def test_telemetry_entry_points_default_to_cuda(monkeypatch):
+    """The entry points that take `telemetry=` (make_handel, make_pingpong,
+    make_p2pflood) and the telemetry modules: CUDA unless asked for the
+    CPU, and without a card the default raises; every telemetry module is
+    among the sources held free of JAX imports."""
+    cfg = TelemetryConfig(snapshots=8, snapshot_every_ms=5)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda **kw: make_handel(HandelParameters(node_count=64), **kw),
+                 make_pingpong, make_p2pflood):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make(telemetry=cfg)
+        net, state = make(telemetry=cfg, device="cpu")
+        assert net.telemetry == cfg
+        assert all(a.device.type == "cpu" for a in state.tele)
+        assert state.tele.snap_time.shape == (8,)
+    names = {p.name for p in SOURCES if p.parent.name == "telemetry"}
+    assert names == {"__init__.py", "state.py", "export.py", "trace.py", "phases.py"}
 
 
 def test_new_entry_points_default_to_cuda(monkeypatch):

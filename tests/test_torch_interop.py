@@ -151,6 +151,35 @@ def test_fault_side_car_round_trip():
         assert got["faults"][k].dtype == v.dtype and np.array_equal(got["faults"][k], v), k
 
 
+@pytest.mark.parametrize("wheel_rows", [None, 0], ids=["wheel", "flat"])
+def test_telemetry_side_car_round_trip(wheel_rows):
+    """A JAX state carrying a TelemetryState (PingPong 40 ms into a run
+    with a snapshot ring, on the wheel and on the flat store, counters
+    and ring written) crosses into the port's TelemetryState and comes
+    back as the dict of its leaves, dtype for dtype; the port then runs
+    on from it."""
+    from wittgenstein_tpu.engine import replicate_state
+    from wittgenstein_tpu.telemetry import TelemetryConfig
+    from wittgenstein_tpu_torch.protocols.pingpong_batched import make_pingpong as tmake
+    from wittgenstein_tpu_torch.telemetry import TelemetryConfig as TConfig
+    from wittgenstein_tpu_torch.telemetry import TelemetryState
+
+    cfg = dict(snapshots=8, snapshot_every_ms=10)
+    net, state = jpingpong(16, wheel_rows=wheel_rows, telemetry=TelemetryConfig(**cfg))
+    jstate = net.run_ms_batched(replicate_state(state, 2), 40)
+    want = jax_numpy(jstate)
+    assert int(np.asarray(jstate.tele.ticks).min()) > 0
+    ts = state_from_numpy(want, "cpu")
+    assert isinstance(ts.tele, TelemetryState) and ts.faults == ()
+    got = state_to_numpy(ts)
+    assert set(got["tele"]) == set(want["tele"]._fields)
+    for k, v in want["tele"]._asdict().items():
+        assert got["tele"][k].dtype == v.dtype and np.array_equal(got["tele"][k], v), k
+    tnet, _ = tmake(16, wheel_rows=wheel_rows, telemetry=TConfig(**cfg), device="cpu")
+    out = tnet.run_ms_batched(ts, 20)
+    assert (out.tele.ticks >= ts.tele.ticks).all()
+
+
 def test_ethpow_state_round_trip():
     """ETHPoW's state (the JAX package's dataclass, no proto and no store)
     crosses both ways leaf for leaf."""

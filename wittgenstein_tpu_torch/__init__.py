@@ -22,8 +22,9 @@ Entry points (`protocols.handel_batched.make_handel`,
 `protocols.ethpow_batched.BatchedEthPow`,
 `protocols.ethpow_env.BatchedMinerEnv`,
 `protocols.handel_env.BatchedAttackEnv`,
-`engine.core.BatchedNetwork` with `BatchedNetwork.with_faults`, and
-`faults.FaultPlan`'s `lower`/`lower_plans`)
+`engine.core.BatchedNetwork` with `BatchedNetwork.with_faults` and
+`BatchedNetwork.with_telemetry`, and `faults.FaultPlan`'s
+`lower`/`lower_plans`)
 run on CUDA unless the caller passes `device="cpu"`; without a card they
 raise instead of falling back.  On a
 CUDA tensor every bitset op launches its kernel; on a CPU tensor it runs
@@ -37,10 +38,14 @@ find:
               latency models (distance + jitter, AWS regions, IC3,
               fixed, uniform, none), registries
   engine/     SimState, BatchedNetwork (flat store and time wheel, lockstep
-              and consensus-jump loops, the fault lanes at send and
+              and consensus-jump loops over per-replica clocks, the fault
+              lanes and the telemetry counters at send, insert and
               delivery), counter RNG, narrow storage plans
   faults/     FaultPlan (crash, partition, drop, inflate, silence, delay),
               its lowering to the FaultState side-car, digests
+  telemetry/  the counter side-car (TelemetryConfig, TelemetryState, the
+              snapshot ring), host exports (counters, Prometheus text,
+              run records, progress series), SpanTracer, phase timing
   ops/        packed-bitset ops, their CUDA kernels (ops/csrc) and binding
   oracle/     the P2P overlay graph builder (host-side, no DES)
   protocols/  batched Handel and GSF on the bitset-aggregation base;

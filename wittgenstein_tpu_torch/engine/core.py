@@ -17,19 +17,25 @@ engine/core.py:
   * one tick delivers every due message, runs the protocol's vectorized
     hooks and appends emissions; the loop is a host loop whose clock `t`
     is a Python int.  Per-ms ticking protocols (TICK_INTERVAL 1) run in
-    lockstep — their entry points assert that all replicas share one
-    time.  Event-driven protocols (TICK_INTERVAL None) run the JAX
-    package's consensus-jump loop: each iteration executes the one tick
-    that is the minimum clock over the replicas still running, and each
-    replica then jumps to its own next arrival, so replicas' clocks may
-    differ.
+    lockstep.  A batch whose replicas' clocks differ is split once into
+    groups of one clock each (`_clock_groups`, one device read); every
+    group steps at its own clock on each loop index, and the groups are
+    merged at the end, as the JAX package's vmapped loops give each
+    replica its own clock.  Event-driven protocols (TICK_INTERVAL None)
+    run the JAX package's consensus-jump loop: each iteration executes
+    the one tick that is the minimum clock over the replicas still
+    running, and each replica then jumps to its own next arrival.
 
 A `FaultConfig` arms the fault side-car (`with_faults`, faults/): its
 lanes act at the send path (`_send_rows`) and the delivery view; with
 `faults=None` the engine runs no fault op and the state carries
-`faults=()`.  The port runs no telemetry side-car and no other tick
-interval; it raises on those.  Its one step is the JAX package's fused step
-(`fuse_step=True`), with the unfused step's exact row clear (see
+`faults=()`.  A `TelemetryConfig` arms the telemetry side-car
+(`with_telemetry`, telemetry/): counters at the send path, the store
+insert and the delivery view, the loop census and the snapshot ring on
+every executed tick; with `telemetry=None` the engine runs no telemetry
+op and the state carries `tele=()`.  The port runs no other tick
+interval; it raises on those.  Its one step is the JAX package's fused
+step (`fuse_step=True`), with the unfused step's exact row clear (see
 `_clear_visited_rows`).
 
 Every function is functional: it never writes into a tensor it was given,
@@ -49,7 +55,6 @@ from ..core.latency import LatencyStatic, NetworkLatency, vec_latency
 from ..faults.state import (
     FaultConfig,
     FaultState,
-    count_by_type,
     deliver_suppress,
     inflate_latency,
     neutral_fault_state,
@@ -57,6 +62,13 @@ from ..faults.state import (
 )
 from ..ops.bitops import lowest_set_bit, pack_occupied, popcount_words
 from ..ops.indexing import add_at, add_masked, set_rows, take
+from ..telemetry.state import (
+    TelemetryConfig,
+    TelemetryState,
+    count_by_type,
+    init_telemetry,
+    record_snapshot,
+)
 from .density import lane_plan
 from .rng import hash32, pseudo_delta
 
@@ -127,20 +139,20 @@ class SimState(NamedTuple):
     msg_head: torch.Tensor  # int32: monotone sent-message counter
     dropped: torch.Tensor  # int32: store overflow count
     proto: Any  # protocol-defined dict of tensors
-    tele: Any = ()  # telemetry side-car: not ported, always empty
+    tele: Any = ()  # telemetry side-car: () or a telemetry.TelemetryState
     faults: Any = ()  # fault side-car: () or a faults.FaultState
 
 
 def map_state(fn, *states: SimState) -> SimState:
     """Apply fn leaf-wise over SimStates of the same structure (proto dict
-    and fault side-car leaves included; empty side-cars pass through)."""
+    and side-car leaves included; empty side-cars pass through)."""
     out = {}
     for f in SimState._fields:
         vals = [getattr(s, f) for s in states]
         if isinstance(vals[0], dict):
             out[f] = {k: fn(*[v[k] for v in vals]) for k in vals[0]}
-        elif isinstance(vals[0], FaultState):
-            out[f] = FaultState(*[fn(*xs) for xs in zip(*vals)])
+        elif isinstance(vals[0], (FaultState, TelemetryState)):
+            out[f] = type(vals[0])(*[fn(*xs) for xs in zip(*vals)])
         elif isinstance(vals[0], torch.Tensor):
             out[f] = fn(*vals)
         else:
@@ -214,8 +226,8 @@ class BatchedNetwork:
         batched_jumps: bool = False,
         device=None,
     ):
-        if telemetry is not None:
-            raise NotImplementedError("telemetry is not ported")
+        if telemetry is not None and not isinstance(telemetry, TelemetryConfig):
+            raise TypeError(f"telemetry must be a TelemetryConfig or None, got {type(telemetry)}")
         if faults is not None and not isinstance(faults, FaultConfig):
             raise TypeError(f"faults must be a FaultConfig or None, got {type(faults)}")
         if protocol.TICK_INTERVAL not in (1, None):
@@ -229,6 +241,8 @@ class BatchedNetwork:
         self.n_nodes = n_nodes
         self.capacity = capacity
         self.jump_stats = None  # set by each event-driven run
+        # the telemetry side-car's static switch: None runs no telemetry op
+        self.telemetry = telemetry
         # the fault lanes' static switch: None runs no fault op
         self.faults = faults
         self.payload_width = protocol.PAYLOAD_WIDTH
@@ -312,6 +326,8 @@ class BatchedNetwork:
             msg_head=i32(0),
             dropped=i32(0),
             proto=proto,
+            tele=(init_telemetry(self.telemetry, self.protocol.n_msg_types(), dev)
+                  if self.telemetry is not None else ()),
             faults=(neutral_fault_state(n, self.protocol.n_msg_types(), dev)
                     if self.faults is not None else ()),
         )
@@ -331,6 +347,33 @@ class BatchedNetwork:
         (Network.partitionId, Network.java:639-649); x_col is [R, ...]."""
         px = state.partition_x.view((x_col.shape[0],) + (1,) * (x_col.dim() - 1) + (-1,))
         return (px <= x_col[..., None]).sum(-1).to(torch.int32)
+
+    # -- telemetry -------------------------------------------------------------
+    def with_telemetry(self, state: SimState, telemetry: TelemetryConfig):
+        """Instrument a built simulation: returns (an engine copy carrying
+        the TelemetryConfig, the state with a counter side-car).  The
+        side-car's per-mtype `sent` starts at the store's census, so the
+        store invariant (sent == delivered + discarded + dropped +
+        pending) holds from the first tick even when emissions predate
+        the instrumentation.  Works on single and batched states."""
+        import copy
+
+        net = copy.copy(self)
+        net.telemetry = telemetry
+        t = self.protocol.n_msg_types()
+        tele = init_telemetry(telemetry, t, self.device)
+        lead = tuple(state.time.shape)
+        if lead:
+            tele = TelemetryState(*[a.expand(lead + tuple(a.shape)).contiguous() for a in tele])
+        # the store's census per mtype: one masked count per type (T is
+        # small) over the wheel [..., W, B] and the overflow lane [..., V]
+        census = [
+            ((state.msg_type == j) & state.msg_valid).sum((-2, -1))
+            + ((state.ovf_type == j) & state.ovf_valid).sum(-1)
+            for j in range(t)
+        ]
+        tele = tele._replace(sent=torch.stack(census, -1).to(torch.int32))
+        return net, state._replace(tele=tele)
 
     # -- fault injection ------------------------------------------------------
     def with_faults(self, state: SimState, faults: Optional[FaultConfig] = None, plan=None):
@@ -432,6 +475,16 @@ class BatchedNetwork:
             ))
             ok = ok_f
             arrival = (send_time + lat_f).to(torch.int32)
+        if self.telemetry is not None:
+            # every send crosses this point (the generic store and the
+            # protocols' channel sends alike), so per-mtype traffic is
+            # counted here, after the fault lanes, as in the JAX package
+            tele = state.tele
+            mrows = mtype if isinstance(mtype, torch.Tensor) else torch.full_like(from_idx, mtype)
+            state = state._replace(tele=tele._replace(
+                lat_sent=count_by_type(tele.lat_sent, ok, mrows),
+                lat_filtered=count_by_type(tele.lat_filtered, mask & ~ok, mrows),
+            ))
         return state, ok, arrival
 
     def apply_emission(self, state: SimState, em: Emission, t: int) -> SimState:
@@ -569,6 +622,24 @@ class BatchedNetwork:
             ext = torch.cat([state.ovf_payload, state.ovf_payload[:, :1]], dim=1)
             ext = ext.scatter(1, pos[..., None].expand(r, k, p), payload)
             state = state._replace(ovf_payload=ext[:, :v])
+        if self.telemetry is not None:
+            # every ok row is inserted or dropped (to_ovf & ~ofits, the
+            # rows behind `overwritten`).  The JAX package samples the
+            # high-water marks after each emission's insert; here a tick's
+            # emissions go in together, and between the inserts of one
+            # tick fill only grows, so the marks after the last insert
+            # equal JAX's running max.  The flat store's wheel is never
+            # filled: its mark stays 0
+            tele = state.tele
+            upd = dict(
+                sent=count_by_type(tele.sent, ok, mtype_rows),
+                dropped=count_by_type(tele.dropped, to_ovf & ~ofits, mtype_rows),
+                ovf_hwm=torch.maximum(tele.ovf_hwm, state.ovf_valid.sum(-1).to(torch.int32)),
+            )
+            if not self.flat:
+                upd["wheel_fill_hwm"] = torch.maximum(tele.wheel_fill_hwm,
+                                                      state.whl_fill.amax(-1))
+            state = state._replace(tele=tele._replace(**upd))
         return state
 
     def _wheel_insert(self, state, t, ok, arrival, from_idx, to_idx, mtype_rows, payload):
@@ -692,6 +763,14 @@ class BatchedNetwork:
         received, bytes_received = add_masked((state.msg_received, state.bytes_received),
                                               view_to, (dm.to(torch.int32), sizes), dm)
         vstate = vview._replace(msg_received=received, bytes_received=bytes_received)
+        if self.telemetry is not None:
+            # due rows leave the store once, as delivered or as discards at
+            # delivery (down destination, cross-partition, a fault lane)
+            tele = vstate.tele
+            vstate = vstate._replace(tele=tele._replace(
+                delivered=count_by_type(tele.delivered, deliver, view_type),
+                discarded=count_by_type(tele.discarded, due & ~deliver, view_type),
+            ))
         if fault_supp is not None:
             fs = vstate.faults
             vstate = vstate._replace(faults=fs._replace(
@@ -766,8 +845,31 @@ class BatchedNetwork:
         masks itself to its beats."""
         state = self._step_core(state, t)
         state = self.protocol.tick_beat(self, state, t)
-        return self.protocol.tick_post(self, state, t)
+        state = self.protocol.tick_post(self, state, t)
+        return self._tele_tick(state, t)
 
+    def _tele_tick(self, state: SimState, t: int) -> SimState:
+        """Per executed tick `t`: the tick census and, with a ring, the
+        progress snapshot (the JAX package's _tele_tick, called before the
+        time advance on every loop)."""
+        if self.telemetry is None:
+            return state
+        tele = state.tele._replace(ticks=state.tele.ticks + 1)
+        if self.telemetry.snapshots:
+            tele = record_snapshot(tele, self.telemetry, state, t)
+        return state._replace(tele=tele)
+
+    # -- the phases the per-phase timing runs ----------------------------------
+    def _phase_deliver(self, state: SimState, t: int) -> SimState:
+        """Delivery + clear only, emissions discarded."""
+        return self._deliver_and_clear(state, t)[0]
+
+    def _phase_deliver_apply(self, state: SimState, t: int) -> SimState:
+        """Delivery + emission apply (protocol.tick excluded)."""
+        state, emissions = self._deliver_and_clear(state, t)
+        return self.apply_emissions(state, emissions, t)
+
+    # -- clocks ---------------------------------------------------------------
     @staticmethod
     def lockstep_time(states: SimState) -> int:
         """The replicas' shared clock as a host int (one device read);
@@ -777,10 +879,41 @@ class BatchedNetwork:
             raise ValueError(f"replicas must share one clock, got times {times}")
         return int(times[0])
 
+    @staticmethod
+    def _clock_groups(states: SimState) -> list:
+        """The replicas grouped by clock, from one device read: a list of
+        (clock, replica index tensor) in clock order, the index None when
+        the whole batch shares one clock."""
+        times = states.time.reshape(-1).tolist()
+        if not times:
+            raise ValueError("an empty batch has no clock")
+        clocks = sorted(set(times))
+        if len(clocks) == 1:
+            return [(clocks[0], None)]
+        dev = states.time.device
+        return [(c, torch.tensor([i for i, x in enumerate(times) if x == c], device=dev))
+                for c in clocks]
+
+    @staticmethod
+    def _rows(states: SimState, idx) -> SimState:
+        """The replicas `idx` of a batch (all of them for None)."""
+        return states if idx is None else map_state(lambda a: a.index_select(0, idx), states)
+
+    @staticmethod
+    def _merge(states: SimState, parts) -> SimState:
+        """`states` with each (idx, sub-batch) of `parts` written back at
+        its replicas (a whole-batch part, idx None, replaces it)."""
+        for idx, sub in parts:
+            states = sub if idx is None else map_state(
+                lambda a, b, idx=idx: a.index_copy(0, idx, b), states, sub)
+        return states
+
     def step(self, states: SimState) -> SimState:
-        """Advance a batched state by one millisecond."""
-        t = self.lockstep_time(states)
-        return self._tick(states, t)._replace(time=states.time + 1)
+        """Advance a batched state by one millisecond, each replica at its
+        own clock."""
+        parts = [(idx, self._tick(self._rows(states, idx), t))
+                 for t, idx in self._clock_groups(states)]
+        return self._merge(states, parts)._replace(time=states.time + 1)
 
     # -- occupancy summaries --------------------------------------------------
     def _wheel_next_arrival(self, state: SimState, t: int) -> torch.Tensor:
@@ -828,7 +961,16 @@ class BatchedNetwork:
         q = self.protocol.TIME_QUANTUM
         if q > 1:
             nxt = torch.minimum(torch.div(nxt + q - 1, q, rounding_mode="floor") * q, ends)
-        return state._replace(time=nxt.to(torch.int32))
+        nxt = nxt.to(torch.int32)
+        if self.telemetry is not None:
+            # the jump census: JAX reads it against a clock already at t+1
+            tele = state.tele
+            gap = nxt - (t + 1)
+            state = state._replace(tele=tele._replace(
+                jumps=tele.jumps + (gap > 0).to(torch.int32),
+                jumped_ms=tele.jumped_ms + gap,
+            ))
+        return state._replace(time=nxt)
 
     def _run_ms_jumps(self, states: SimState, ms: int, stop_when_done: bool) -> SimState:
         """The consensus-jump loop for event-driven protocols (the JAX
@@ -845,11 +987,13 @@ class BatchedNetwork:
         message is pending; every clock ends at its horizon.
 
         Observability: afterwards `jump_stats` holds the run's iteration
-        count and each replica's last executed tick (-1 if none) — with
-        stop_when_done, the tick its outcome was decided."""
+        count, each replica's last executed tick (-1 if none) — with
+        stop_when_done, the tick its outcome was decided — and each
+        replica's count of executed ticks."""
         proto = self.protocol
         ends = states.time + ms
         last_tick = torch.full_like(states.time, -1)
+        ticks = torch.zeros_like(states.time)
         s, iterations = states, 0
         while True:
             alive = s.time < ends
@@ -861,8 +1005,9 @@ class BatchedNetwork:
             active = alive & (s.time == t)
             s = _lane_select(active, self._step_jump(s, t, ends), s)
             last_tick = torch.where(active, t, last_tick)
+            ticks = ticks + active.to(torch.int32)
             iterations += 1
-        self.jump_stats = {"iterations": iterations, "last_tick": last_tick}
+        self.jump_stats = {"iterations": iterations, "last_tick": last_tick, "ticks": ticks}
         return s._replace(time=ends)
 
     # -- the loops -------------------------------------------------------------
@@ -875,8 +1020,13 @@ class BatchedNetwork:
         event-driven protocol runs the consensus-jump loop instead."""
         if self.protocol.TICK_INTERVAL is None:
             return self._run_ms_jumps(states, ms, stop_when_done)
-        t0 = self.lockstep_time(states)
-        s = states
+        parts = [(idx, self._run_ungated(self._rows(states, idx), t0, ms, stop_when_done))
+                 for t0, idx in self._clock_groups(states)]
+        return self._merge(states, parts)._replace(time=states.time + ms)
+
+    def _run_ungated(self, s: SimState, t0: int, ms: int, stop_when_done: bool) -> SimState:
+        """run_ms' loop over replicas that share clock t0; the clock leaf
+        is left as it was."""
         for i in range(ms):
             if stop_when_done:
                 alive = ~self.protocol.all_done(s)
@@ -885,7 +1035,7 @@ class BatchedNetwork:
                 s = _lane_select(alive, self._tick(s, t0 + i), s)
             else:
                 s = self._tick(s, t0 + i)
-        return s._replace(time=states.time + ms)
+        return s
 
     def run_ms_batched(self, states: SimState, ms: int,
                        stop_when_done: bool = False) -> SimState:
@@ -899,27 +1049,65 @@ class BatchedNetwork:
         stop_when_done stops the loop, before a tick, once every replica's
         all_done holds: one device read per tick, the tick the JAX
         while_loop stops at.  Otherwise the ungated `run_ms` runs, and an
-        event-driven protocol the consensus-jump loop."""
+        event-driven protocol the consensus-jump loop.
+
+        Replicas whose clocks differ step in groups of one clock, each
+        group at its own clock on every loop index; tick_beat fires for
+        every group when any group's clock beats, as JAX's any-replica
+        test fires it for every lane (tick_beat masks itself to each
+        replica's own beats), and a group whose replicas are all done
+        keeps stepping until the whole batch is."""
         proto = self.protocol
         period, residues = proto.BEAT_PERIOD, proto.BEAT_RESIDUES
         if proto.TICK_INTERVAL is None or not period or residues is None \
                 or len(residues) >= period:
             return self.run_ms(states, ms, stop_when_done)
         residues = frozenset(int(r) for r in residues)
-        t0 = self.lockstep_time(states)
-        s = states
+        groups = self._clock_groups(states)
+        subs = [self._rows(states, idx) for _, idx in groups]
         for i in range(ms):
-            if stop_when_done and bool(proto.all_done(s).all()):
-                break
-            t = t0 + i
-            s = self._step_core(s, t)
+            if stop_when_done:
+                done = [proto.all_done(s).all() for s in subs]
+                if bool(done[0] if len(done) == 1 else torch.stack(done).all()):
+                    break
             # lax.rem truncates toward zero, like math.fmod
-            if int(math.fmod(t, period)) in residues:
-                s = proto.tick_beat(self, s, t)
-            else:
-                s = s._replace(send_ctr=s.send_ctr + proto.BEAT_SEND_CALLS)
-            s = proto.tick_post(self, s, t)
-        return s._replace(time=states.time + ms)
+            beat = any(int(math.fmod(t0 + i, period)) in residues for t0, _ in groups)
+            for g, (t0, _) in enumerate(groups):
+                t = t0 + i
+                s = self._step_core(subs[g], t)
+                if beat:
+                    s = proto.tick_beat(self, s, t)
+                else:
+                    s = s._replace(send_ctr=s.send_ctr + proto.BEAT_SEND_CALLS)
+                s = proto.tick_post(self, s, t)
+                subs[g] = self._tele_tick(s, t)
+        parts = [(idx, s) for (_, idx), s in zip(groups, subs)]
+        return self._merge(states, parts)._replace(time=states.time + ms)
+
+    def run_ms_occupancy(self, states: SimState, ms: int):
+        """`ms` plain per-tick steps, no empty-ms jumps, so every tick's
+        occupancy is sampled; returns (state, {"wheel_fill_hwm",
+        "overflow_hwm"}), each replica's wheel-fill and overflow
+        high-water marks over the run's ticks ([R] int32).  Each replica
+        steps at its own clock."""
+        parts, marks = [], []
+        for t0, idx in self._clock_groups(states):
+            s = self._rows(states, idx)
+            hw_fill = torch.zeros_like(s.time)
+            hw_ovf = torch.zeros_like(s.time)
+            for i in range(ms):
+                s = self._tick(s, t0 + i)
+                hw_fill = torch.maximum(hw_fill, s.whl_fill.amax(-1))
+                hw_ovf = torch.maximum(hw_ovf, s.ovf_valid.sum(-1).to(torch.int32))
+            parts.append((idx, s))
+            marks.append((idx, hw_fill, hw_ovf))
+        fill = torch.zeros_like(states.time)
+        ovf = torch.zeros_like(states.time)
+        for idx, hw_fill, hw_ovf in marks:
+            fill = hw_fill if idx is None else fill.index_copy(0, idx, hw_fill)
+            ovf = hw_ovf if idx is None else ovf.index_copy(0, idx, hw_ovf)
+        out = self._merge(states, parts)._replace(time=states.time + ms)
+        return out, {"wheel_fill_hwm": fill, "overflow_hwm": ovf}
 
 
 def replicate_state(state: SimState, n_replicas: int, seeds=None) -> SimState:

@@ -32,6 +32,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops.indexing import take
+from ..telemetry.state import count_by_type  # noqa: F401  (the one copy, shared by both side-cars)
 
 INT_MAX = 2**31 - 1
 
@@ -115,17 +116,6 @@ def neutral_fault_state(n_nodes: int, n_msg_types: int, device=None) -> FaultSta
 def stack_fault_states(states) -> FaultState:
     """Stack per-replica schedules along a new leading replica axis."""
     return FaultState(*[torch.stack(xs) for xs in zip(*states)])
-
-
-def count_by_type(counts: torch.Tensor, mask: torch.Tensor, mtype_rows: torch.Tensor):
-    """counts [R, T] plus the per-mtype census of the masked rows of [R, K];
-    rows whose mtype lies outside [0, T) are dropped, as the JAX package's
-    drop-mode scatter drops them."""
-    r, t = counts.shape
-    mrows = mtype_rows.to(torch.int64)
-    idx = torch.where(mask & (mrows >= 0) & (mrows < t), mrows, t)
-    ext = torch.cat([counts, counts.new_zeros(r, 1)], 1)
-    return ext.scatter_add(1, idx, mask.to(counts.dtype))[:, :t]
 
 
 # -- the lane predicates (the engine's two choke points) ---------------------

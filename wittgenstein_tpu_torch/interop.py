@@ -18,7 +18,8 @@ state and be compared leaf by leaf.
 
 A fault side-car (`faults`, the JAX package's FaultState as numpy leaves,
 or a mapping of them) comes across as the port's FaultState and goes back
-as a dict of numpy leaves.  ETHPoW's state, which has no proto and no
+as a dict of numpy leaves, and a telemetry side-car (`tele`, the JAX
+package's TelemetryState) as the port's TelemetryState, the same way.  ETHPoW's state, which has no proto and no
 message store, crosses too: a tree whose fields are EthPowState's (the
 JAX package's dataclass, a NamedTuple or a mapping) becomes the port's
 EthPowState, and `state_to_numpy` of an EthPowState gives the dict of its
@@ -35,6 +36,9 @@ import torch
 
 from .engine.core import SimState
 from .faults.state import FaultState
+from .telemetry.state import TelemetryState
+
+SIDE_CARS = {"faults": FaultState, "tele": TelemetryState}
 
 
 def ported_protocols() -> tuple:
@@ -118,13 +122,12 @@ def state_from_numpy(tree, device) -> SimState:
         v = fields[f]
         if f == "proto":
             out[f] = {k: _to_tensor(a, device) for k, a in _fields(v).items()}
-        elif f == "faults" and v not in ((), None):
-            fv = _fields(v)
-            out[f] = FaultState(*[_to_tensor(fv[k], device) for k in FaultState._fields])
-        elif f in ("tele", "faults"):
-            if v not in ((), None):
-                raise NotImplementedError(f"the port carries no {f} side-car")
-            out[f] = ()
+        elif f in SIDE_CARS:
+            if v is None or (isinstance(v, tuple) and not v):
+                out[f] = ()
+            else:
+                fv, cls = _fields(v), SIDE_CARS[f]
+                out[f] = cls(*[_to_tensor(fv[k], device) for k in cls._fields])
         else:
             out[f] = _to_tensor(v, device)
     return SimState(**out)
@@ -153,7 +156,7 @@ def state_to_numpy(state: SimState) -> dict:
         v = getattr(state, f)
         if f == "proto":
             out[f] = {k: _to_numpy(a, is_word_leaf(protocol, k)) for k, a in v.items()}
-        elif isinstance(v, FaultState):
+        elif isinstance(v, (FaultState, TelemetryState)):
             out[f] = {k: _to_numpy(a, False) for k, a in v._asdict().items()}
         elif isinstance(v, torch.Tensor):
             out[f] = _to_numpy(v, False)

@@ -37,13 +37,28 @@ Three forms differ from the JAX package's, with the same results:
     after it.  The loop's other device read is whether any replica is
     still running: the port keeps the device reads per iteration to one
     or two, since each one stalls the host until the card has caught up.
-  * The threshold.  float32 `exp` differs by one ulp between XLA's CPU and
-    torch on a few percent of arguments; a one-ulp step of `exp` near 1
-    moves the threshold by 2^-24, the trial's grain, so a trial flips when
-    its draw falls on that step.  The port takes `exp` in float64 and
-    rounds to float32, which is XLA's result on all but ~1e-4 of the
-    arguments and the same on every device (`thresholds`).  The state
-    leaves stay bit-equal; the thresholds are held to one ulp.
+  * The threshold's `exp`.  A one-ulp step of `exp` near 1 moves the
+    threshold by 2^-24, the trial's grain, so a trial flips when its
+    draw falls on that step: the threshold must be XLA's float32 `exp`
+    bit for bit, which neither torch's float32 `exp` nor a rounded
+    float64 `exp` is.  `exp_f32` is XLA's CPU sequence itself (a
+    Cody-Waite range reduction, a degree-6 polynomial whose steps are
+    fused multiply-adds, then 1 + p and a scale by 2^n), each fused step
+    taken as one float64 multiply-add rounded to float32: a product of
+    two float32 is exact in float64, so each step rounds the exact
+    a*b + c once to float64 and once to float32.  Every operation is a
+    correctly rounded IEEE float64 or float32 operation, so the result
+    is the same on the CPU and on the card.  Covered range: every
+    float32 x with -x in [2^-20, 2^-6) (EXP_COVERED), where
+    scripts/torch_ethpow_exp_check.py enumerates every argument and
+    finds no difference from XLA's; the thresholds' arguments
+    -hp_per_10ms / cand_diff lie in about [2^-14, 2^-11) at the genesis
+    difficulty for the hash powers of 10 miners (a 45% miner's 2^-10.9,
+    the others' 2^-13.8 beside it, 2^-13.1 when all are equal), which
+    leaves five binades and more of margin on each side for the
+    difficulty's drift.  Outside the range
+    the port promises no equality (the same script finds none from
+    -x = 2^-40 to 2^6).
 """
 
 from __future__ import annotations
@@ -109,6 +124,49 @@ class EthPowState(NamedTuple):
     pmb: torch.Tensor  # int32: private_miner_block idx, -1 = None
     omh: torch.Tensor  # int32: other_miners_head idx
     withheld: torch.Tensor  # bool[B]: mined_to_send set
+
+
+# XLA's CPU float32 exp (its Cephes-derived polynomial), constants as the
+# float32 values it rounds them to
+def _f32(v: float) -> float:
+    return float(np.float32(v))
+
+
+_EXP_CLAMP = _f32(88.8)
+_LOG2E = _f32(1.44269504088896341)
+_LN2_HI, _LN2_LO = _f32(0.693359375), _f32(-2.12194440e-4)
+_EXP_POLY = tuple(_f32(c) for c in (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
+                                     4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1))
+# -x over which exp_f32 is enumerated equal to XLA's, [lo, hi)
+EXP_COVERED = (2.0**-20, 2.0**-6)
+
+
+def _round32(x: torch.Tensor) -> torch.Tensor:
+    """A float64 tensor rounded to float32, kept in float64."""
+    return x.to(torch.float32).to(torch.float64)
+
+
+def _fma32(a: torch.Tensor, b, c) -> torch.Tensor:
+    """float32 fused multiply-add of float32 values held in float64: a*b is
+    exact in float64, + c rounds once there, then once to float32."""
+    return _round32(a * b + c)
+
+
+def exp_f32(x: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU float32 `exp` of a float32 tensor, bit for bit over
+    EXP_COVERED (see the module docstring): n = floor(x log2e + 1/2),
+    a = x - n ln2 in two fused steps, z = 1 + a + a^2 p(a) with p's
+    Horner steps fused, times 2^n built from its exponent bits (0 for
+    n = -127: XLA flushes results below 2^-126)."""
+    x = x.to(torch.float64).clamp(-_EXP_CLAMP, _EXP_CLAMP)
+    n = torch.floor(_fma32(x, _LOG2E, 0.5)).clamp(-127.0, 127.0)
+    a = _fma32(-n, _LN2_LO, _fma32(-n, _LN2_HI, x))
+    z = _fma32(a, _EXP_POLY[0], _EXP_POLY[1])
+    for c in _EXP_POLY[2:]:
+        z = _fma32(z, a, c)
+    z = _round32(1.0 + _fma32(z, _round32(a * a), a))
+    pow2 = ((n.to(torch.int32) + 127) << 23).view(torch.float32)
+    return z.to(torch.float32) * pow2
 
 
 def _at(col: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -237,9 +295,8 @@ class BatchedEthPow:
 
     def thresholds(self, cand_diff: torch.Tensor) -> torch.Tensor:
         """P(success per 10 ms) per miner, float32: 1 - exp(-hp / diff) with
-        `exp` taken in float64 and rounded (see the module docstring)."""
-        x = -self.hp_per_10ms / cand_diff
-        return 1.0 - torch.exp(x.to(torch.float64)).to(torch.float32)
+        XLA's float32 `exp` (`exp_f32`, see the module docstring)."""
+        return 1.0 - exp_f32(-self.hp_per_10ms / cand_diff)
 
     # -- the receive phases (scalar walks per replica) -----------------------
     def _newly_received(self, s: EthPowState, t):

@@ -161,6 +161,7 @@ def make_p2pflood(
     params: Optional[P2PFloodParameters] = None,
     capacity: int = 1 << 13,
     seed: int = 0,
+    telemetry=None,  # a telemetry.TelemetryConfig arms the counter side-car
     device=None,  # None = CUDA; "cpu" runs the plain versions
 ):
     """Host-side construction: the replay of the oracle's init (graph and
@@ -173,7 +174,7 @@ def make_p2pflood(
     cols = build_node_columns(nodes, getattr(latency, "city_index", None))
     proto = BatchedP2PFlood(params, adj, senders, device=dev)
     net = BatchedNetwork(proto, latency, params.node_count, capacity=capacity, wheel_rows=0,
-                         device=dev)
+                         telemetry=telemetry, device=dev)
     # dead nodes are down from t=0, before the initial floods go out
     state = net.init_state(cols, seed=seed, proto=proto.proto_init(params.node_count), down=down)
     if params.msg_count == 1:

@@ -1,0 +1,381 @@
+"""Host export layer: one device-to-host read, three wire formats.
+
+Port of the JAX package's telemetry/export.py, on torch tensors and
+numpy.  The device tier (telemetry.state) accumulates counters on the
+device; this module turns a final state into:
+
+  * a plain-python counter summary (`counters`), the body of a run
+    record;
+  * Prometheus text exposition (`PromText` / `prometheus_from_counters`),
+    which any scrape stack ingests directly;
+  * a progress time-series (`progress_series` + `done_counts_at`) decoded
+    from the on-device snapshot ring: the time-to-aggregation CDF and the
+    progress curves without a host read per window.
+
+JSONL run records (`RunRecordWriter` / `read_run_records`) are the
+durable form: one self-describing line per run, append-only, safe for
+concurrent tails.
+
+Nothing here imports the engine: only numpy over the state's leaves
+(torch tensors are read to the host once, wherever they live).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+RUN_RECORD_SCHEMA = "witt-run-record/v1"
+
+
+def _np(a) -> np.ndarray:
+    """A leaf as a numpy array (a torch tensor is read to the host)."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def _py(v):
+    """Recursively convert numpy and torch leaves to plain python for json."""
+    if isinstance(v, dict):
+        return {k: _py(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return [_py(x) for x in v]
+    if hasattr(v, "dtype"):
+        a = _np(v)
+        if a.ndim == 0:
+            return a.item()
+        return a.tolist()
+    return v
+
+
+def _mtype_names(protocol) -> List[str]:
+    names = list(getattr(protocol, "MSG_TYPES", []) or [])
+    n = protocol.n_msg_types() if hasattr(protocol, "n_msg_types") else 1
+    while len(names) < n:
+        names.append(f"t{len(names)}")
+    return names
+
+
+def pending_count(state) -> int:
+    """Exact live-store census (messages, not occupied rows — the
+    engine's pending_messages() counts rows for the quiescence test)."""
+    return int(
+        _np(state.msg_valid).sum() + _np(state.ovf_valid).sum()
+    )
+
+
+def counters(net, state) -> dict:
+    """Counter summary of a final state (single replica or batched:
+    counts sum over the leading replica axis, high-water marks take the
+    max).  Works with telemetry disabled too — the store/latency tiers
+    are then absent and only the node-counter block is reported."""
+    names = _mtype_names(net.protocol)
+    sizes = [int(net.protocol.msg_size(t)) for t in range(len(names))]
+
+    def tsum(a):  # per-mtype arrays: sum replicas, keep the [T] axis
+        a = _np(a)
+        return a.reshape(-1, a.shape[-1]).sum(axis=0).tolist()
+
+    def ssum(a):
+        return int(_np(a).sum())
+
+    def smax(a):
+        return int(_np(a).max())
+
+    out = {
+        "schema": RUN_RECORD_SCHEMA,
+        "telemetry_enabled": net.telemetry is not None,
+        "time": smax(state.time),
+        "replicas": (
+            int(_np(state.time).size)
+        ),
+        "mtypes": names,
+        "msg_sizes": sizes,
+        "node": {
+            "msg_sent": ssum(state.msg_sent),
+            "msg_received": ssum(state.msg_received),
+            "bytes_sent": ssum(state.bytes_sent),
+            "bytes_received": ssum(state.bytes_received),
+            "done_nodes": int((_np(state.done_at) > 0).sum()),
+            "down_nodes": int(_np(state.down).sum()),
+        },
+        "store": {
+            "sent_total": ssum(state.msg_head),
+            "dropped_total": ssum(state.dropped),
+            "pending": pending_count(state),
+        },
+    }
+    if net.telemetry is not None:
+        tele = state.tele
+        out["store"].update(
+            sent=tsum(tele.sent),
+            delivered=tsum(tele.delivered),
+            discarded=tsum(tele.discarded),
+            dropped=tsum(tele.dropped),
+        )
+        out["latency_kernel"] = {
+            "sent": tsum(tele.lat_sent),
+            "filtered": tsum(tele.lat_filtered),
+            "bytes_sent": [
+                int(c) * s for c, s in zip(tsum(tele.lat_sent), sizes)
+            ],
+        }
+        out["occupancy"] = {
+            "wheel_fill_hwm": smax(tele.wheel_fill_hwm),
+            "overflow_hwm": smax(tele.ovf_hwm),
+        }
+        # jump efficacy: jumped_ms_frac is the share of simulated
+        # milliseconds skipped as provably-empty (per-replica census
+        # summed; the denominator is the summed final clocks, i.e. the
+        # total ms the batch was billed for).  min/max over replicas
+        # bound the spread without an unbounded per-replica list in
+        # every record
+        jumps = _np(tele.jumps).reshape(-1)
+        jmd = _np(tele.jumped_ms).reshape(-1)
+        out["loop"] = {
+            "ticks": ssum(tele.ticks),
+            "jumps": ssum(tele.jumps),
+            "jumped_ms": ssum(tele.jumped_ms),
+            "jumped_ms_frac": round(
+                float(jmd.sum())
+                / max(1, int(_np(state.time).sum())),
+                6,
+            ),
+            "jumps_min": int(jumps.min()),
+            "jumps_max": int(jumps.max()),
+            "jumped_ms_min": int(jmd.min()),
+            "jumped_ms_max": int(jmd.max()),
+        }
+    if getattr(net, "faults", None) is not None:
+        fs = state.faults
+        out["faults"] = {
+            "dropped_by_fault": tsum(fs.dropped_by_fault),
+            "delayed_by_fault": tsum(fs.delayed_by_fault),
+        }
+    return out
+
+
+# -- progress time-series ----------------------------------------------------
+def progress_series(state, replica: Optional[int] = None):
+    """Decode the snapshot ring into a time-sorted list of
+    {time, done, pending, sent, delivered} dicts (unwritten slots are
+    dropped; ring wrap is harmless because slots are time-keyed).
+
+    A batched state returns one series per replica (or one series for
+    `replica`)."""
+    tele = state.tele
+    st = _np(tele.snap_time)
+    if st.ndim == 2:
+        if replica is None:
+            return [progress_series(state, r) for r in range(st.shape[0])]
+        idx = (replica,)
+    else:
+        if replica not in (None, 0):
+            raise ValueError("single-replica state has only replica 0")
+        idx = ()
+    cols = {
+        "time": st[idx],
+        "done": _np(tele.snap_done)[idx],
+        "pending": _np(tele.snap_pending)[idx],
+        "sent": _np(tele.snap_sent)[idx],
+        "delivered": _np(tele.snap_delivered)[idx],
+    }
+    live = cols["time"] >= 0
+    order = np.argsort(cols["time"][live], kind="stable")
+    return [
+        {k: int(v[live][order][i]) for k, v in cols.items()}
+        for i in range(int(live.sum()))
+    ]
+
+
+def done_counts_at(series, times) -> List[int]:
+    """Done-node count at each query time, forward-filled between
+    snapshots (exact: between two executed ticks nothing changes, the
+    engine only jumps time when no event fires)."""
+    out = []
+    for t in times:
+        val = 0
+        for row in series:  # series is time-sorted
+            if row["time"] <= t:
+                val = row["done"]
+            else:
+                break
+        out.append(val)
+    return out
+
+
+# -- Prometheus text exposition ----------------------------------------------
+class PromText:
+    """Minimal Prometheus text-format (version 0.0.4) renderer: HELP and
+    TYPE headers once per metric family, label sets escaped per spec."""
+
+    def __init__(self, prefix: str = "witt"):
+        self.prefix = prefix
+        self._families = {}  # name -> (type, help, [(labels, value)])
+
+    @staticmethod
+    def _esc(v: str) -> str:
+        return str(v).replace("\\", "\\\\").replace('"', '\\"').replace(
+            "\n", "\\n"
+        )
+
+    def add(self, name, value, help="", mtype="gauge", labels=None):
+        full = f"{self.prefix}_{name}" if self.prefix else name
+        fam = self._families.setdefault(full, (mtype, help, []))
+        fam[2].append((dict(labels or {}), value))
+        return self
+
+    def render(self) -> str:
+        lines = []
+        for name, (mtype, help_, samples) in self._families.items():
+            if help_:
+                lines.append(f"# HELP {name} {self._esc(help_)}")
+            lines.append(f"# TYPE {name} {mtype}")
+            for labels, value in samples:
+                lab = ""
+                if labels:
+                    inner = ",".join(
+                        f'{k}="{self._esc(v)}"' for k, v in labels.items()
+                    )
+                    lab = "{" + inner + "}"
+                v = _py(value)
+                lines.append(f"{name}{lab} {v}")
+        return "\n".join(lines) + "\n"
+
+
+def prometheus_from_counters(c: dict, prefix: str = "witt") -> str:
+    """Render a `counters()` summary as Prometheus text — the batched
+    engine's /metrics payload."""
+    p = PromText(prefix)
+    p.add("sim_time_ms", c["time"], "simulated time, ms")
+    p.add("replicas", c["replicas"], "stacked replica count")
+    n = c["node"]
+    p.add("node_msg_sent_total", n["msg_sent"], "node msgSent sum", "counter")
+    p.add(
+        "node_msg_received_total",
+        n["msg_received"],
+        "node msgReceived sum",
+        "counter",
+    )
+    p.add("node_bytes_sent_total", n["bytes_sent"],
+          "node bytesSent sum", "counter")
+    p.add("node_bytes_received_total", n["bytes_received"],
+          "node bytesReceived sum", "counter")
+    p.add("done_nodes", n["done_nodes"], "nodes with done_at > 0")
+    p.add("down_nodes", n["down_nodes"], "dead nodes")
+    s = c["store"]
+    p.add(
+        "store_dropped_total",
+        s["dropped_total"],
+        "messages lost to store overflow",
+        "counter",
+    )
+    p.add("store_pending", s["pending"], "live messages in the store")
+    for key, help_ in (
+        ("sent", "rows accepted into the message store"),
+        ("delivered", "rows delivered to the protocol"),
+        ("discarded", "due rows dropped at delivery"),
+        ("dropped", "rows lost to store overflow"),
+    ):
+        if key in s:
+            for name, v in zip(c["mtypes"], s[key]):
+                p.add(
+                    f"store_{key}_by_type_total",
+                    v,
+                    help_,
+                    "counter",
+                    {"mtype": name},
+                )
+    lk = c.get("latency_kernel")
+    if lk:
+        for name, v in zip(c["mtypes"], lk["sent"]):
+            p.add(
+                "messages_sent_total",
+                v,
+                "ok sends through the latency kernel (store + channels)",
+                "counter",
+                {"mtype": name},
+            )
+        for name, v in zip(c["mtypes"], lk["filtered"]):
+            p.add(
+                "messages_filtered_total",
+                v,
+                "sends filtered at send time (down/partition/discard)",
+                "counter",
+                {"mtype": name},
+            )
+    occ = c.get("occupancy")
+    if occ:
+        p.add("wheel_fill_hwm", occ["wheel_fill_hwm"], "wheel row fill HWM")
+        p.add("overflow_hwm", occ["overflow_hwm"], "overflow lane HWM")
+    loop = c.get("loop")
+    if loop:
+        p.add("ticks_total", loop["ticks"], "executed engine ticks", "counter")
+        p.add("jumps_total", loop["jumps"], "empty-ms jumps", "counter")
+        p.add("jumped_ms_total", loop["jumped_ms"], "ms skipped", "counter")
+        if "jumped_ms_frac" in loop:
+            p.add("jumped_ms_frac", loop["jumped_ms_frac"],
+                  "share of simulated ms skipped as provably empty")
+            for stat in ("jumps_min", "jumps_max",
+                         "jumped_ms_min", "jumped_ms_max"):
+                p.add(f"loop_{stat}", loop[stat],
+                      "per-replica jump census spread")
+    fl = c.get("faults")
+    if fl:
+        for name, v in zip(c["mtypes"], fl["dropped_by_fault"]):
+            p.add(
+                "fault_dropped_by_type_total",
+                v,
+                "sends/deliveries suppressed by an injected fault",
+                "counter",
+                {"mtype": name},
+            )
+        for name, v in zip(c["mtypes"], fl["delayed_by_fault"]):
+            p.add(
+                "fault_delayed_by_type_total",
+                v,
+                "sends whose latency an injected fault rewrote",
+                "counter",
+                {"mtype": name},
+            )
+    return p.render()
+
+
+# -- JSONL run records -------------------------------------------------------
+class RunRecordWriter:
+    """Append-only JSONL run records: one self-describing line per run
+    (ts + schema stamped), numpy leaves converted to plain python.  The
+    durable sibling of a run's printed record, safe to tail."""
+
+    def __init__(self, path: str):
+        self.path = path
+
+    def write(self, record: dict, **extra) -> dict:
+        rec = {"schema": RUN_RECORD_SCHEMA, "ts": round(time.time(), 3)}
+        rec.update(_py(record))
+        rec.update(_py(extra))
+        d = os.path.dirname(os.path.abspath(self.path))
+        os.makedirs(d, exist_ok=True)
+        with open(self.path, "a") as f:
+            f.write(json.dumps(rec) + "\n")
+        return rec
+
+
+def read_run_records(path: str) -> List[dict]:
+    """Parse a JSONL run-record file (unparseable lines are skipped, the
+    campaign-log convention for torn tails)."""
+    out = []
+    if os.path.exists(path):
+        with open(path) as f:
+            for line in f:
+                try:
+                    out.append(json.loads(line))
+                except ValueError:
+                    continue
+    return out
