@@ -27,33 +27,33 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 cand_score with K = 10, 8 and 1, popcount_binop and
                 lowest_set_bit at every width bucket of GSF at 2048 nodes
                 x 32 replicas, and pack_bool_words on P2PHandel's payload
-                rows [R*N, 120] and [R*N*P, 120] at R = 1024; then
-                (eth2_shapes) HandelEth2's sites at 256 nodes x R = 64:
+                rows [R*N, 120] and [R*N*P, 120] at R = 256; then
+                (eth2_shapes) HandelEth2's sites at 256 nodes x R = 16:
                 popcount_words on the _card rows [R*N*P*L, 64], and the
                 sizeIfMerged counts of _select over [R, N, P, L, K, H]
                 candidate rows as the port computes them — popcount_words
                 + popcount_binop "and"/"or" with the node rows broadcast
                 over K, and the three together; then (paxos_shapes) the
-                occupancy forms at Paxos's wheel, R = 8192:
+                occupancy forms at Paxos's wheel, R = 2048:
                 pack_occupied on [R, 512] int32 fills, lowest_set_bit and
                 popcount_words on the packed [R, 16] words
   4. identity   the port on the CPU (plain versions) and on CUDA
-                (kernels), each side in worker processes (four on the
-                CPU, four on the card, all at once), give identical
+                (kernels), each side in worker processes (three on the
+                CPU, five on the card, all at once), give identical
                 state in every leaf: batched Handel at 64
                 nodes x 2 replicas x 300 ms, flagship-shaped and with
                 byzantine_suicide; PingPong at 64 nodes x 2 x 300 ms;
-                Dfinity (default) x 2 x 7000 ms; GSF at 256 nodes x 2 x
+                Dfinity (default) x 2 x 5000 ms; GSF at 256 nodes x 2 x
                 300 ms; P2PHandel (72 nodes) x 2 x 1500 ms; HandelEth2 at
-                32 nodes x 2 x 700 ms; SanFermin at 64 nodes x 2 x 1500 ms;
+                32 nodes x 2 x 700 ms; SanFermin at 64 nodes x 2 x 1000 ms;
                 CasperIMD at its defaults (83 nodes, max_heights 16) x 2 x
-                40000 ms with the "wf" and "sf" producers and under the AWS
-                and IC3 models; Paxos x 2 x 5000 ms with 3 and with 5
+                24000 ms with the "wf" and "sf" producers and x 2 x 40000
+                ms under the AWS and IC3 models; Paxos x 2 x 5000 ms with 3 and with 5
                 acceptors; Slush and Snowflake (100 nodes) x 2 x 4000 ms;
                 P2PFlood (100 nodes, 3 floods) x 2 x 2001 ms;
                 OptimisticP2PSignature (64 nodes, threshold 56, 10
                 connections) x 2 x 1500 ms; SanFerminCappos (64 nodes,
-                threshold 32, 4 candidates) x 2 x 1500 ms; ENRGossiping's
+                threshold 32, 4 candidates) x 2 x 1000 ms; ENRGossiping's
                 churn configuration (ENR_CHURN: 24 nodes, 31 slots) x 2 x
                 12000 ms, the card's only check of births, exits and
                 capability changes (both exits fire by 10000 ms); and
@@ -66,7 +66,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 on the wheel with telemetry on (TELE_CFG), the same under
                 all_lanes_plan, and the flagship-shaped Handel at 64
                 nodes with telemetry on a batch whose clocks are 0 and 7
-                ms (per-replica clock groups), 100 ms
+                ms (per-replica clock groups), 100 ms; the cities corner
+                of logStartTime at 64 nodes (CITIES builder, UniformSpeed,
+                Tor, the city matrix with jitter) and the tor battery's
+                0.5 point at 32 nodes, each x 2 x 400 ms; run_fault_sweep
+                over PingPong at 64 nodes with a duplicated plan, its out
+                state and records
   5. flagship   the Handel main path: make_handel(flagship_params(4096)),
                 replicate_state(R=16), run_ms_batched in 20-ms chunks up to
                 1000 ms with stop_when_done; every live node must finish and
@@ -97,16 +102,37 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 from the raw Kineto events (`_window_events`), which gives
                 the numbers torch's own processing gives at a fraction of
                 its cost; the p2pflood window holds the two readings equal
-  7. byzantine  4096 nodes, 1024 down, byzantine_suicide, R=4, 100 ms;
-                lowest_set_bit_andnot must have launched in this run; then
-                lowest_set_bit and lowest_set_bit_andnot are timed on the
-                run's own eligibility rows (byz, bl) of every width bucket
+  7. sweep      BASELINE config 3 through the port's run_sweep: Handel at
+                4096 nodes under default_params, byzantineSuicide at 0,
+                5, 10, 15, 20 and 25% (none at 0%), R = 4 a point,
+                SWEEP_MS (1400, cut from 3000) with stop_when_done.  The
+                threshold is traced, so run_sweep runs six groups; each
+                runs as run_sweep([config], seed0=1000 * i) (the seeds
+                its rows have in the whole list) in a worker process,
+                all at once, with the cities run.  Every group's ticks,
+                ms a tick, launches and peak memory; sweep_profile is
+                ticks 100-109 of the 20% group.  Every live node of every
+                row done but where the JAX package leaves nodes undone
+                at the same seeds (SWEEP_UNDONE), nothing dropped, the
+                25% point's done_at_avg above the 0% point's, the
+                popcount family and (from 5%) lowest_set_bit_andnot
+                launched, and row 0 of each point equal to the JAX
+                package's at its group's stop tick (SWEEP_R0); one CSV
+                row a point.  Then lowest_set_bit and
+                lowest_set_bit_andnot are timed on the 20% group's own
+                eligibility rows (byz, bl) at tick 100, every width bucket
+  7b. cities    log_start_time_configs(4096, dead=0.2, tor=0.2)[2] (the
+                allScenarios "111" corner at levelWaitTime 50: the CITIES
+                builder with UniformSpeed and Tor, the city matrix with
+                jitter, a 100-ms desynchronized start) through run_sweep,
+                R = 4, 300 ms: nothing dropped, the popcount family
+                launched, row 0 equal to the JAX package's (CITIES_R0)
   8. pingpong   the event-driven main path: make_pingpong(1000), R=4096,
                 run_ms_batched(700, stop_when_done) on the time wheel and
                 the consensus-jump loop; every witness must count 1000
                 pongs, nothing may drop, and pack_occupied, lowest_set_bit
                 and popcount_words must have launched in this run
-  9. pp_profile a 20-iteration window from iteration 100 of the PingPong
+  9. pp_profile a 10-iteration window from iteration 100 of the PingPong
                 run, with pack_occupied's device time
  10. faults_pingpong  the same PingPong run with its first half of
                 replicas under all_lanes_plan (10% of the nodes crash at
@@ -128,37 +154,36 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 run_ms_occupancy (per-tick steps, no jumps) on replicas
                 0-255 for 100 ms on the card and on replicas 0-3 on the
                 CPU, whose marks and states must be equal
- 11. dfinity    make_dfinity(max_heights=64), R=1024, 15000 ms: nothing may
+ 11. dfinity    make_dfinity(max_heights=64), R=256, 15000 ms: nothing may
                 drop, every replica's head height (its highest notarized
                 block) reaches 4, and pack_occupied must have launched
  12. gsf        GSF at 2048 nodes (BASELINE config 2), R = 32, 1000 ms in
                 20-ms chunks with stop_when_done: every node must finish,
                 and the popcount family and lowest_set_bit must launch;
                 gsf_profile is ticks 100-109 of its run
- 13. p2phandel  P2PHandel at the reference defaults, R = 1024, 3000 ms on
-                the 512-row wheel (cut from running to done, 6957 ticks):
-                nothing may drop, replica 0 must give the JAX package's
-                seed-0 counters at 3000 ms (P2P_R0), pack_bool_words must
-                launch; p2p_profile is a 20-tick window at ticks 100-119
- 14. handeleth2 HandelEth2 at 256 nodes, R = 64, 2000 ms on the 512-row
-                wheel (the height-1001 process completes every level by
-                1000 ms): nothing may drop, every node of every replica
-                must hold 256 incoming contributions, replica 0 must give
-                the JAX package's seed-0 traffic (21711 received, 21960
-                sent), and the popcount forms must launch; eth2_profile is
-                a 20-tick torch.profiler window over ticks 1000-1019 (the
+ 13. p2phandel  P2PHandel at the reference defaults, R = 256, 1000 ms on
+                the 512-row wheel (cut from running to done, 6957 ticks,
+                then from 3000 ms): nothing may drop, replica 0 must give
+                the JAX package's seed-0 counters at 1000 ms (P2P_R0), pack_bool_words must
+                launch; p2p_profile is a 10-tick window at ticks 100-109
+ 14. handeleth2 HandelEth2 at 256 nodes, R = 16, 1200 ms (cut from 2000)
+                on the 512-row wheel: nothing may drop, every node of
+                every replica must hold 256 incoming contributions,
+                replica 0 must give the JAX package's seed-0 traffic
+                (ETH2_R0: 16279 received, 16705 sent), and the popcount forms must launch; eth2_profile is
+                a 10-tick torch.profiler window over ticks 1000-1009 (the
                 beat tick 1001 among them) inside the run
  15. sanfermin  SanFermin at 4096 nodes (BASELINE config 5 with Dfinity),
-                capacity 1 << 16, R = 1024, 2200 ms (cut from 3000): nothing may drop, and
-                replica 0 must give the JAX package's seed-0 result (4078
-                nodes done, thr_at P10/P50/P90 1044/1260/1580, min 815, max
-                2109, 156424 received, 91655 requests); sf_profile is a
-                20-tick window over ticks 1500-1519 inside the run.  Its
+                capacity 1 << 16, R = 256, 1200 ms (cut from 3000, then
+                2200): nothing may drop, and replica 0 must give the JAX
+                package's seed-0 result (SF_R0: 1544 nodes past the
+                threshold, thr_at P10/P50/P90 982/1101/1184); sf_profile
+                is a 10-tick window over ticks 1000-1009 inside the run.  Its
                 path calls no hand-written kernel (the per-ms loop reads no
                 wheel occupancy summary)
  16. casper     CasperIMD at 1024 validators (BASELINE config 4: 1027
                 nodes, cycle_length 4, attesters_per_round 256,
-                max_heights 12), R = 64, 48000 ms on the flat store, once
+                max_heights 12), R = 16, 48000 ms on the flat store, once
                 per latency model of the sweep (distance + jitter; AWS
                 regions with the AWS node builder, whose latencies are all
                 1 ms on the batched path, as in the JAX package; IC3):
@@ -166,25 +191,25 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 blocks or more, and replica 0 must give the JAX package's
                 seed-0 outcome (CASPER_R0) under each model; each model's
                 casper_*_profile is its CASPER_WINDOWS window (iterations
-                100-119 of distance's 2131, 11-20 of AWS's 21, 61-80 of
+                100-109 of distance's 2131, 11-20 of AWS's 21, 61-70 of
                 IC3's 81).  Its path calls no hand-written kernel
- 17. paxos      Paxos (3 acceptors, 3 proposers), R = 8192, 5000 ms with
+ 17. paxos      Paxos (3 acceptors, 3 proposers), R = 2048, 5000 ms with
                 stop_when_done on the 512-row wheel (cut from 16384,
-                71.6 s on an H100 at 700 W): no replica's proposers may accept two values,
+                71.6 s on an H100 at 700 W, then from 8192): no replica's proposers may accept two values,
                 every replica must decide but those the JAX package leaves
                 undecided (PAXOS_UNDECIDED), nothing may drop,
                 replica 0 must give the JAX package's seed-0 run (done_at
                 487/912/226, value 95, 77 received, 78 sent), and
                 pack_occupied, lowest_set_bit and popcount_words must
-                launch; paxos_profile is a 20-iteration window from
+                launch; paxos_profile is a 10-iteration window from
                 iteration 100
  18. slush      Slush at the reference main (100 nodes, M 5, K 7, alpha
-                4/7), R = 4096, 4000 ms with stop_when_done on the 512-row
+                4/7), R = 1024, 4000 ms with stop_when_done on the 512-row
                 wheel: every node of every replica colored and none
                 querying, nothing dropped, replica 0 equal to the JAX
                 package's seed-0 run (AV_R0), and pack_occupied,
                 lowest_set_bit and popcount_words launched in this run;
-                slush_profile is a 20-iteration torch.profiler window from
+                slush_profile is a 10-iteration torch.profiler window from
                 iteration 100 inside the run
  19. snowflake  the same for Snowflake (B = 3) and snowflake_profile
  20. p2pflood   P2PFlood at the reference defaults (100 nodes, 10 dead, 10
@@ -194,19 +219,19 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 (FLOOD_R0); p2pflood_profile inside the run.  No
                 hand-written kernel on its path
  21. optimistic OptimisticP2PSignature at the reference's 1000 nodes
-                (threshold 501, 13 connections, pairing time 3), R = 16,
+                (threshold 501, 13 connections, pairing time 3), R = 4,
                 1500 ms with stop_when_done on the flat store at capacity
                 1 << 23 (134M slots; 1 << 22 drops): every node of every
                 replica done, nothing dropped, replica 0 equal to the JAX
                 package's seed-0 run (OPT_R0); optimistic_profile inside
                 the run.  No hand-written kernel on its path
  22. cappos     SanFerminCappos at 1024 nodes (threshold 512, 50
-                candidates), R = 64, 1000 ms on the 512-row wheel at
+                candidates), R = 16, 500 ms (cut from 1000) on the 512-row wheel at
                 capacity 1 << 20 (4096 slots a row; 1 << 19 drops), a fixed
                 depth since six nodes never finish: nothing dropped,
                 replica 0 equal to the JAX package's seed-0 run
-                (CAPPOS_R0); cappos_profile is a 20-tick window over ticks
-                300-319 inside the run.  No hand-written kernel on its path
+                (CAPPOS_R0); cappos_profile is a 10-tick window over ticks
+                300-309 inside the run.  No hand-written kernel on its path
  23. enr        ENRGossiping at the reference main (ENRParameters(), the
                 main's 10-hour horizon: 131 slots), capacity 1 << 12 on the
                 flat store, R = 1024, 60000 ms at a fixed depth (cut from
@@ -216,16 +241,17 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 every replica 51 slots alive and the adjacency symmetric,
                 loop-free and without a link on a dead slot; replica 0
                 equal to the JAX package's seed-0 run (ENR_R0);
-                enr_profile is a 20-iteration window from iteration 100
+                enr_profile is a 10-iteration window from iteration 100
                 inside the run.  No hand-written kernel on its path
- 24. ethpow     ETHPoW at the reference's 10 miners, b_max 512, R = 4096,
-                600000 ms (cut from try_miner's hour: the event loop is
-                host-bound and the hour would not fit the time limit),
+ 24. ethpow     ETHPoW at the reference's 10 miners, b_max 512, R = 1024,
+                150000 ms (cut from try_miner's hour, then from 600000
+                and 300000 ms: the event loop is host-bound and the time
+                limit is shared),
                 honest and under ETHSelfishMiner and ETHSelfishMiner2 at
                 45%: nothing overflows, the selfish mean revenue ratio is
                 above 0.5, replica 0 equals the JAX package's seed-0 run
                 (ETH_R0); each config's ethpow_<config>_profile is a
-                20-iteration window from iteration 100.  The
+                10-iteration window from iteration 100.  The
                 ethpow_x_range line: the smallest and largest argument
                 x = -hp/cand_diff of every threshold the three runs took
                 (tracked on the card, read once at the end), which must
@@ -236,7 +262,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 No hand-written kernel on its path
  25. miner_env  BatchedMinerEnv at create_agent's configuration (CITIES
                 builder, NetworkFixedLatency(1000), 10 miners, agent at
-                45%), R = 4096, 150 steps of 1000 ms (cut from 600: the
+                45%), R = 1024, 150 steps of 1000 ms (cut from 600: the
                 time limit) under miner_policy (release everything when
                 behind, else withhold): nothing overflows, replica 0's
                 last observation equals the JAX environment's (MINER_R0);
@@ -256,6 +282,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
  28. launches_by_path  each path's launch count of every form
  29. kernels    one line listing every ported kernel with its numbers
 
+Every run is under torch.inference_mode() (the worker processes' too).
 The last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
@@ -277,7 +304,7 @@ import numpy as np
 import torch
 
 from wittgenstein_tpu_torch.core.registries import builder_name
-from wittgenstein_tpu_torch.engine import map_state, replicate_state
+from wittgenstein_tpu_torch.engine import BatchedNetwork, map_state, replicate_state
 from wittgenstein_tpu_torch.faults import FaultConfig, FaultPlan, lower_plans
 from wittgenstein_tpu_torch.interop import state_to_numpy
 from wittgenstein_tpu_torch.ops import bitops, kernels
@@ -319,47 +346,111 @@ from wittgenstein_tpu_torch.protocols.sanfermin_cappos import SanFerminParameter
 from wittgenstein_tpu_torch.protocols.sanfermin_cappos_batched import make_sanfermin_cappos
 from wittgenstein_tpu_torch.protocols.slush import SlushParameters
 from wittgenstein_tpu_torch.protocols.snowflake import SnowflakeParameters
+from wittgenstein_tpu_torch.scenarios.handel_scenarios import (
+    CSV_FIELDS,
+    log_start_time_configs,
+    tor_configs,
+)
+from wittgenstein_tpu_torch.scenarios.sweep import (
+    SweepConfig,
+    default_params,
+    run_fault_sweep,
+    run_sweep,
+)
 from wittgenstein_tpu_torch.telemetry import TelemetryConfig
+from wittgenstein_tpu_torch.tools.csv_formatter import CSVFormatter
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak (NVIDIA data sheet, at 700 W)
 INT_OPS_PER_S = 67e12  # 32-bit rate outside the tensor cores (same sheet's fp32)
 FLAGSHIP_NODES = 4096
 FLAGSHIP_REPLICAS = 16
-BYZ_REPLICAS = 4
-# depth cut from 1000 ms (to 400, then to 100 when the script with the
-# Casper and Paxos phases ran 836 s and 956 s on H100 80GB HBM3 hosts at
-# 700 W) to keep the script well inside its time limit; it checks launches
-BYZ_MS = 100
+# BASELINE config 3: the Byzantine sweep (scenarios/sweep.py run_sweep)
+SWEEP_NODES = 4096
+SWEEP_FRACTIONS = (0.0, 0.05, 0.10, 0.15, 0.20, 0.25)
+SWEEP_REPLICAS = 4
+# cut from 3000 ms: every group but 5% is done by 1392 ms; one replica of
+# the 5% group leaves live nodes undone at any depth (SWEEP_UNDONE), so
+# that group runs to the horizon (3000 ms: 465 s on an H100 80GB HBM3 at
+# 700 W, past the script's budget)
+SWEEP_MS = 1400
+# the 20% group carries the profile window: its processing (~12 s) would
+# lengthen the phase in one of the three longest groups (5, 10, 25%)
+SWEEP_PROFILE_POINT = 4
+CITIES_MS = 300
+# row 0 of each point at its group's stop tick (the tick after its last
+# row's completion, or SWEEP_MS), and the cities run's row 0 at CITIES_MS:
+# the JAX package's numbers on the CPU (scripts/torch_sweep_reference.py)
+SWEEP_R0 = {
+    0.0: {"ticks": 608, "done_at_min": 436, "done_at_avg": 487, "done_at_max": 570,
+          "msg_rcv_min": 264, "msg_rcv_avg": 311, "msg_rcv_max": 357,
+          "msg_filtered_avg": 76, "sigs_checked_avg": 16},
+    0.05: {"ticks": 1400, "done_at_min": 717, "done_at_avg": 838, "done_at_max": 1023,
+           "msg_rcv_min": 344, "msg_rcv_avg": 457, "msg_rcv_max": 534,
+           "msg_filtered_avg": 159, "sigs_checked_avg": 82},
+    0.1: {"ticks": 1140, "done_at_min": 761, "done_at_avg": 875, "done_at_max": 1113,
+          "msg_rcv_min": 327, "msg_rcv_avg": 443, "msg_rcv_max": 501,
+          "msg_filtered_avg": 130, "sigs_checked_avg": 95},
+    0.15: {"ticks": 1243, "done_at_min": 779, "done_at_avg": 904, "done_at_max": 1089,
+           "msg_rcv_min": 319, "msg_rcv_avg": 432, "msg_rcv_max": 506,
+           "msg_filtered_avg": 142, "sigs_checked_avg": 105},
+    0.2: {"ticks": 1195, "done_at_min": 794, "done_at_avg": 926, "done_at_max": 1123,
+          "msg_rcv_min": 254, "msg_rcv_avg": 414, "msg_rcv_max": 499,
+          "msg_filtered_avg": 119, "sigs_checked_avg": 109},
+    0.25: {"ticks": 1392, "done_at_min": 830, "done_at_avg": 947, "done_at_max": 1391,
+           "msg_rcv_min": 256, "msg_rcv_avg": 397, "msg_rcv_max": 481,
+           "msg_filtered_avg": 132, "sigs_checked_avg": 114},
+}
+CITIES_R0 = {"done": 0, "msg_received": 137280, "msg_filtered": 0, "sigs_checked": 14966}
+# live nodes each row leaves undone at SWEEP_MS, where not all are done:
+# the JAX package's rows at the same seeds (1000-1003) leave the same
+SWEEP_UNDONE = {0.05: [0, 0, 1, 0]}
 CHUNK_MS = 20
 SIM_MS = 1000
 PP_NODES = 1000
 PP_REPLICAS = 4096
 PP_MS = 700
-DF_REPLICAS = 1024
+# the replica counts marked "cut" below were cut (a run's replicas are
+# independent; every replica-0 check holds at any count) to make room for
+# the Byzantine sweep and the cities run within the script's time limit
+DF_REPLICAS = 256  # cut from 1024
 DF_MS = 15000
 GSF_NODES = 2048
 GSF_REPLICAS = 32
-P2P_REPLICAS = 1024
+P2P_REPLICAS = 256  # cut from 1024
 # a fixed depth, cut from running to done (6957 ticks, 144 s at 20.74 ms a
 # tick on an H100 80GB HBM3 at 700 W, when the script ran 836-956 s) to
 # make room for the Slush, Snowflake, P2PFlood, OptimisticP2PSignature and
-# SanFerminCappos runs; replica 0 is held to the JAX package's seed-0
-# counters at this depth (P2P_R0), where no node is done yet
-P2P_MS = 3000
-P2P_R0 = {"msg_received": 332, "msg_sent": 332, "done": 0, "verified": 787, "ver_card": 787,
-          "ver_sig": 343, "peers_state": 1392, "ver_done_t": 202486, "last_check": 181686}
+# SanFerminCappos runs, then from 3000 ms for the Byzantine sweep;
+# replica 0 is held to the JAX package's seed-0 counters at this depth
+# (P2P_R0, scripts/torch_r0_reference.py p2phandel), where no node is
+# done yet
+P2P_MS = 1000
+P2P_R0 = {"msg_received": 100, "msg_sent": 100, "done": 0, "verified": 200, "ver_card": 200,
+          "ver_sig": 80, "peers_state": 200, "ver_done_t": 23337, "last_check": 10337}
 ETH2_NODES = 256
-ETH2_REPLICAS = 64
-ETH2_MS = 2000
+ETH2_REPLICAS = 16  # cut from 64
+# cut from 2000 ms for the Byzantine sweep: the height-1001 process is
+# complete at every node by then too
+ETH2_MS = 1200
+# the JAX package's seed-0 traffic at ETH2_MS (scripts/torch_r0_reference.py
+# handeleth2)
+ETH2_R0 = {"msg_received": 16279, "msg_sent": 16705, "rr_bump": 16279, "window_min": 128,
+           "window_max": 128}
 SF_NODES = 4096
-SF_REPLICAS = 1024
+SF_REPLICAS = 256  # cut from 1024
 # cut from 3000 ms (3000 ticks at 30.82 ms, 92 s, on an H100 80GB HBM3 at
-# 700 W, when the script ran 836-956 s) to make room for this slice's
-# runs; replica 0's numbers are the same at 2200 ms as at 3000 (its last
-# node reaches the threshold at 2109 ms) in the JAX package's seed-0 run
-SF_MS = 2200
+# 700 W, when the script ran 836-956 s) to 2200 (replica 0's numbers are
+# the same there: its last node reaches the threshold at 2109 ms), then
+# to 1200 for the Byzantine sweep, where 1544 of replica 0's nodes have
+# reached it
+SF_MS = 1200
 SF_CAPACITY = 1 << 16
-PROFILE_TICKS = 20
+# the JAX package's seed-0 run at SF_MS (scripts/torch_r0_reference.py
+# sanfermin)
+SF_R0 = {"done": 1544, "thr_at_p10_p50_p90": [982, 1101, 1184], "thr_at_min": 815,
+         "thr_at_max": 1203, "msg_received": 139355, "sent_req": 86436}
+SF_PROFILE_AT = 1000
+PROFILE_TICKS = 10  # cut from 20: the windows' own processing
 # the flagship's and GSF's windows stay at the 10 ticks they had as second
 # runs: at 20 ticks inside the run the two phases took 52 s and 37 s
 # beyond their runs on an H100 80GB HBM3 at 700 W (most of it the
@@ -368,7 +459,7 @@ LOCKSTEP_PROFILE_TICKS = 10
 PROFILE_FROM = 100  # the event-driven runs' profiled window starts here
 # BASELINE config 4: CasperIMD with 1024 attesters (1027 nodes), 6 slots,
 # under the three latency models of its sweep
-CASPER_REPLICAS = 64
+CASPER_REPLICAS = 16  # cut from 64
 CASPER_MS = 48000
 CASPER_HEIGHTS = 12
 CASPER_MODELS = {
@@ -380,7 +471,8 @@ CASPER_MODELS = {
 # each model's profiled window (first iteration, iterations) inside its
 # run: the AWS run takes 21 iterations and the IC3 run 81, fewer than
 # PROFILE_FROM + PROFILE_TICKS
-CASPER_WINDOWS = {"distance": (PROFILE_FROM, PROFILE_TICKS), "aws": (11, 10), "ic3": (61, 20)}
+CASPER_WINDOWS = {"distance": (PROFILE_FROM, PROFILE_TICKS), "aws": (11, 10),
+                  "ic3": (61, PROFILE_TICKS)}
 # the JAX package's seed-0 run of config 4, the same under every model:
 # a linear chain of 5 blocks, and the re-arming timers live at the end
 CASPER_R0 = {"heights": [0, 1, 2, 3, 4, 5], "blk_parent": [-1, 0, 1, 2, 3, 4],
@@ -390,8 +482,8 @@ CASPER_R0 = {"heights": [0, 1, 2, 3, 4, 5], "blk_parent": [-1, 0, 1, 2, 3, 4],
              "wf_late": 0, "overflow_live": 1026, "overflow_slots": [0, 1025],
              "overflow_types": [0, 0, 1, 1024, 1, 0, 0], "overflow_arrival_sum": 65640000}
 # cut from 16384, whose run took 71.6 s on an H100 80GB HBM3 at 700 W,
-# past the phase's 60 s
-PAXOS_REPLICAS = 8192
+# past the phase's 60 s, then from 8192
+PAXOS_REPLICAS = 2048
 PAXOS_MS = 5000
 # seeds whose proposers 0 and 1 still duel at 5000 ms (each one's commit
 # rejected after the other's proposal), undecided in the JAX package too
@@ -402,7 +494,7 @@ P2P_SMALL = dict(signing_node_count=64, relaying_node_count=8, threshold=60,
                  connection_count=12, pairing_time=20, sigs_send_period=200)
 # Slush and Snowflake at the reference mains (slush.py, snowflake.py), on
 # the 512-row wheel at the default capacity, run to quiescence
-AV_REPLICAS = 4096
+AV_REPLICAS = 1024  # cut from 4096
 AV_MS = 4000
 AV_PATHS = {
     "slush": (make_slush, lambda: SlushParameters(100, 5, 7, 4.0 / 7.0)),
@@ -426,7 +518,7 @@ FLOOD_R0 = {"done": 90, "done_at_p10_p50_p90": [332.0, 547.5, 736.1], "done_at_m
 # about 6 million sends a replica by 300 ms: 1 << 22 slots drop 11% of them.
 # The JAX package's seed-0 run stops at tick 228 (the last node done at
 # 234 = 228 + 2 * pairing time) with 2760055 sends still in flight
-OPT_REPLICAS = 16
+OPT_REPLICAS = 4  # cut from 16
 OPT_MS = 1500
 OPT_CAPACITY = 1 << 23
 OPT_R0 = {"done": 1000, "done_at_p10_p50_p90": [162.0, 176.0, 193.0], "done_at_min": 151,
@@ -435,14 +527,16 @@ OPT_R0 = {"done": 1000, "done_at_p10_p50_p90": [162.0, 176.0, 193.0], "done_at_m
 # SanFerminCappos at 1024 nodes (sigs_per_time), on the 512-row wheel with
 # 4096 slots a row (1 << 19 drops); six nodes never finish, so the run
 # has a fixed depth, by which it has settled
-CAPPOS_REPLICAS = 64
-CAPPOS_MS = 1000
+CAPPOS_REPLICAS = 16  # cut from 64
+# cut from 1000 ms for the Byzantine sweep: every node that finishes has
+# finished by 358 ms; replies still in flight at 500 (CAPPOS_R0)
+CAPPOS_MS = 500
 CAPPOS_CAPACITY = 1 << 20
 CAPPOS_PROFILE_AT = 300
 CAPPOS_R0 = {"done": 1018, "not_done": [311, 390, 534, 674, 841, 890],
              "done_at_p10_p50_p90": [323.0, 334.0, 346.0], "done_at_min": 313,
              "done_at_max": 358, "thr_done": 1018, "thr_at_p10_p50_p90": [308.0, 320.0, 332.0],
-             "msg_received": 402698, "msg_sent": 402698, "cpl": 47}
+             "msg_received": 364734, "msg_sent": 402580, "cpl": 47}
 # ENRGossiping at the reference main (enr_gossiping.py's main: cap_search
 # over 10 hours, so 131 slots), on the flat store; 60000 ms reach the first
 # broadcasts and their floods, link growth to max_peers 50 and the swap
@@ -472,27 +566,30 @@ INT32_MAX = 2**31 - 1
 OCC_MS = 100
 ETH_MINERS = 10
 ETH_B_MAX = 512
-ETH_REPLICAS = 4096
-ETH_MS = 600_000
+ETH_REPLICAS = 1024  # cut from 4096
+# cut from 600 000 ms (52 s for the three runs on an H100 80GB HBM3 at
+# 700 W), then from 300 000, to make room for the Byzantine sweep
+ETH_MS = 150_000
 ETH_CONFIGS = {
     "honest": {},
     "selfish": dict(byz_class_name="ETHSelfishMiner", byz_mining_ratio=0.45),
     "selfish2": dict(byz_class_name="ETHSelfishMiner2", byz_mining_ratio=0.45),
 }
-# the JAX package's seed-0 run of each at ETH_MS (public tip seen by miner 0)
+# the JAX package's seed-0 run of each at ETH_MS (public tip seen by miner
+# 0; scripts/torch_r0_reference.py ethpow)
 ETH_R0 = {
-    "honest": {"n_blocks": 59, "chain": 58, "tip": 58, "revenue_ratio": 0.05172413793103448,
-               "blocks_mined": [7, 3, 6, 5, 8, 6, 9, 3, 7, 4], "overflowed": 0},
-    "selfish": {"n_blocks": 69, "chain": 46, "tip": 68, "revenue_ratio": 0.6304347826086957,
-                "blocks_mined": [4, 29, 4, 5, 5, 6, 6, 2, 5, 2], "overflowed": 0},
-    "selfish2": {"n_blocks": 69, "chain": 46, "tip": 68, "revenue_ratio": 0.6304347826086957,
-                 "blocks_mined": [4, 29, 4, 5, 5, 6, 6, 2, 5, 2], "overflowed": 0},
+    "honest": {"n_blocks": 19, "chain": 18, "tip": 18, "revenue_ratio": 0.05555555555555555,
+               "blocks_mined": [2, 1, 2, 0, 1, 1, 5, 3, 2, 1], "overflowed": 0},
+    "selfish": {"n_blocks": 22, "chain": 13, "tip": 19, "revenue_ratio": 0.8461538461538461,
+                "blocks_mined": [1, 11, 1, 0, 1, 1, 2, 2, 1, 1], "overflowed": 0},
+    "selfish2": {"n_blocks": 22, "chain": 13, "tip": 19, "revenue_ratio": 0.8461538461538461,
+                 "blocks_mined": [1, 11, 1, 0, 1, 1, 2, 2, 1, 1], "overflowed": 0},
 }
 # BatchedMinerEnv at create_agent's configuration (ethpow.py:757-766)
 MINER_PARAMS = dict(node_builder_name=builder_name("CITIES", True, 0),
                     network_latency_name="NetworkFixedLatency(1000)", number_of_miners=10,
                     byz_class_name="ETHMinerAgent", byz_mining_ratio=0.45)
-MINER_REPLICAS = 4096
+MINER_REPLICAS = 1024  # cut from 4096
 MINER_DECISION_MS = 1000
 MINER_STEPS = 150  # cut from 600: the time limit (PERF.md, PR 10)
 MINER_PROFILE_STEPS = 5  # ~5800 kernels a step
@@ -1213,34 +1310,42 @@ def _leaf_diff(a: dict, b: dict) -> list:
 
 
 # identity cases: (build on a device, ms, chunk); each runs 2 replicas.
-# Longest first (their CUDA sides took 15-23 s each on an H100 80GB HBM3
-# at 700 W), so that the worker pools finish together
+# Longest first (the first eleven's CUDA sides took 15-36 s each on an
+# H100 80GB HBM3 at 700 W, the CPU sides about half that), so that the
+# worker pools finish together
 IDENTITY = {
+    "dfinity": (lambda dev: make_dfinity(device=dev), 5000, 5000),
+    "cappos": (lambda dev: make_sanfermin_cappos(SanFerminParameters(64, 32, 2, 48, 150, 4),
+                                                 device=dev), 1000, 500),
+    "sanfermin": (lambda dev: make_sanfermin(sf_params(64), device=dev), 1000, 500),
     "enr": (lambda dev: make_enr(ENRParameters(**ENR_CHURN), horizon_ms=12_000, capacity=1024,
                                  device=dev), 12000, 12000),
-    "sanfermin": (lambda dev: make_sanfermin(sf_params(64), device=dev), 1500, 500),
-    "cappos": (lambda dev: make_sanfermin_cappos(SanFerminParameters(64, 32, 2, 48, 150, 4),
-                                                 device=dev), 1500, 500),
+    "slush": (lambda dev: make_slush(AV_PATHS["slush"][1](), device=dev), 4000, 4000),
     "snowflake": (lambda dev: make_snowflake(AV_PATHS["snowflake"][1](), device=dev),
                   4000, 4000),
-    "slush": (lambda dev: make_slush(AV_PATHS["slush"][1](), device=dev), 4000, 4000),
-    "flagship_shaped": (lambda dev: make_handel(flagship_params(64), score_cache=True,
-                                                device=dev), 300, 100),
-    "dfinity": (lambda dev: make_dfinity(device=dev), 7000, 7000),
+    "casper_wf": (lambda dev: make_casper(max_heights=16, device=dev), 24000, 24000),
+    "casper_sf": (lambda dev: make_casper(max_heights=16, byz_variant="sf", device=dev),
+                  24000, 24000),
+    # the cities path: CITIES builder, UniformSpeed, Tor, the city matrix
+    # with jitter, desynchronized start
+    "cities_start_time": (lambda dev: make_handel(log_start_time_configs(
+        64, dead=0.2, tor=0.2)[2].params, score_cache=True, device=dev), 400, 200),
     "p2phandel": (lambda dev: make_p2phandel(P2PHandelParameters(**P2P_SMALL), device=dev),
                   1500, 500),
-    "casper_wf": (lambda dev: make_casper(max_heights=16, device=dev), 40000, 40000),
+    # the tor battery's 0.5 point
+    "tor_half": (lambda dev: make_handel(tor_configs(32)[5].params, score_cache=True,
+                                         device=dev), 400, 200),
+    "handeleth2": (lambda dev: make_handeleth2(HandelEth2Parameters(node_count=32),
+                                               device=dev), 700, 350),
+    "gsf": (lambda dev: make_gsf(GSFSignatureParameters(node_count=256, threshold=253),
+                                 device=dev), 300, 100),
     "byzantine_suicide": (lambda dev: make_handel(HandelParameters(
         node_count=64, nodes_down=16, threshold=47, byzantine_suicide=True),
         score_cache=True, device=dev), 300, 100),
-    "casper_sf": (lambda dev: make_casper(max_heights=16, byz_variant="sf", device=dev),
-                  40000, 40000),
-    "gsf": (lambda dev: make_gsf(GSFSignatureParameters(node_count=256, threshold=253),
-                                 device=dev), 300, 100),
-    "handeleth2": (lambda dev: make_handeleth2(HandelEth2Parameters(node_count=32),
-                                               device=dev), 700, 350),
     "p2pflood": (lambda dev: make_p2pflood(P2PFloodParameters(msg_count=3), device=dev),
                  2001, 2001),
+    "flagship_shaped": (lambda dev: make_handel(flagship_params(64), score_cache=True,
+                                                device=dev), 300, 100),
     "optimistic": (lambda dev: make_optimistic(OptimisticP2PSignatureParameters(64, 56, 10, 1),
                                                device=dev), 1500, 1500),
     "paxos": (lambda dev: make_paxos(device=dev), 5000, 5000),
@@ -1312,6 +1417,18 @@ def _tele_case(make, ms, chunk, clocks=None):
     return run
 
 
+def _fault_sweep_case(dev):
+    """run_fault_sweep over PingPong at 64 nodes with a duplicated plan (two
+    rows a plan): the out state and the records, as JSON bytes."""
+    net, state = make_pingpong(64, device=dev)
+    plan = all_lanes_plan(64)
+    out, records = run_fault_sweep(net, state, [plan, None, plan], 300, replicas_per_plan=2,
+                                   done_cdf_every=50)
+    leaves = state_to_numpy(out)
+    leaves["records"] = np.frombuffer(json.dumps(records).encode(), np.uint8)
+    return leaves
+
+
 IDENTITY_AGENT = dict(byz_class_name="ETHMinerAgent", byz_mining_ratio=0.45)
 # cases that run their own way: case -> (run on a device -> numpy leaves, ms)
 IDENTITY_RUNS = {
@@ -1330,23 +1447,27 @@ IDENTITY_RUNS = {
     "faults_pingpong_tele": (_faults_case(
         lambda dev: make_pingpong(64, telemetry=TELE_CFG, device=dev), all_lanes_plan(64),
         300, 300), 300),
+    "fault_sweep_pingpong": (_fault_sweep_case, 300),
     "handel_tele_clocks_0_7": (_tele_case(lambda dev: make_handel(
         flagship_params(64), score_cache=True, telemetry=TELE_CFG, device=dev),
         100, 100, clocks=(0, 7)), 100),
 }
 
 
-def identity_state(case: str, dev: str) -> dict:
-    """One identity case on one device: 2 replicas run in chunks; the
-    state as numpy leaves."""
+@torch.inference_mode()
+def identity_state(case: str, dev: str) -> tuple:
+    """One identity case on one device: 2 replicas run in chunks; (the
+    worker's seconds, the state as numpy leaves)."""
+    t0 = time.perf_counter()
     if case in IDENTITY_RUNS:
-        return IDENTITY_RUNS[case][0](dev)
+        leaves = IDENTITY_RUNS[case][0](dev)
+        return time.perf_counter() - t0, leaves
     make, ms, chunk = IDENTITY[case]
     net, state = make(dev)
     states = replicate_state(state, 2)
     for _ in range(ms // chunk):
         states = net.run_ms_batched(states, chunk)
-    return state_to_numpy(states)
+    return time.perf_counter() - t0, state_to_numpy(states)
 
 
 def _one_thread() -> None:
@@ -1358,26 +1479,30 @@ def _one_thread() -> None:
 def identity() -> None:
     """Each IDENTITY case gives identical state in every leaf on the CPU
     (plain versions) and on CUDA (kernels).  Both sides of every case run
-    in worker processes, four on the CPU and four on the card, all
+    in worker processes, three on the CPU and five on the card, all
     started together (each side's host loop holds one core; the card
-    serves the four in turn); every worker is joined or terminated when
-    the phase ends.  `ready_s` is when both sides of a case were in."""
+    serves the five in turn, and a case's CUDA side takes about twice its
+    CPU side); every worker is joined or terminated when the phase ends.
+    `ready_s` is when both sides of a case were in, `cpu_s` and `cuda_s`
+    each side's own seconds."""
     ctx = multiprocessing.get_context("spawn")
     t0 = time.perf_counter()
-    with ctx.Pool(4, initializer=_one_thread) as cpu_pool, \
-            ctx.Pool(4, initializer=_one_thread) as cuda_pool:
-        # the slice-10 cases after the first five, longest first again
-        cases = list(IDENTITY)[:5] + list(IDENTITY_RUNS) + list(IDENTITY)[5:]
+    with ctx.Pool(3, initializer=_one_thread) as cpu_pool, \
+            ctx.Pool(5, initializer=_one_thread) as cuda_pool:
+        # the cases that run their own way after the eleven longest
+        cases = list(IDENTITY)[:11] + list(IDENTITY_RUNS) + list(IDENTITY)[11:]
         cpu = {case: cpu_pool.apply_async(identity_state, (case, "cpu")) for case in cases}
         cuda = {case: cuda_pool.apply_async(identity_state, (case, "cuda")) for case in cases}
         for case in cases:
-            out = cuda[case].get()
-            bad = _leaf_diff(cpu[case].get(), out)
+            cuda_s, out = cuda[case].get()
+            cpu_s, want = cpu[case].get()
+            bad = _leaf_diff(want, out)
             if bad:
                 raise AssertionError(f"identity {case}: CPU and CUDA differ in {bad[:10]}")
             ms = IDENTITY_RUNS[case][1] if case in IDENTITY_RUNS else IDENTITY[case][1]
             row = {"phase": "identity", "case": case, "replicas": 2, "ms": ms,
-                   "leaves_equal": True, "ready_s": time.perf_counter() - t0}
+                   "leaves_equal": True, "ready_s": time.perf_counter() - t0,
+                   "cpu_s": cpu_s, "cuda_s": cuda_s}
             if "x" in out:
                 row.update({"nodes": int(out["x"].shape[-1]),
                             "done_nodes": int((out["done_at"] > 0).sum()),
@@ -1599,17 +1724,224 @@ def telemetry(plain) -> dict:
     return row
 
 
-def byzantine() -> dict:
-    params = HandelParameters(
-        node_count=4096, nodes_down=1024, threshold=int(3072 * 0.99),
-        byzantine_suicide=True,
-    )
-    out = drive(params, BYZ_REPLICAS, ms=BYZ_MS)
-    if out["launches"]["lowest_set_bit_andnot"] <= 0:
-        raise AssertionError("byzantine: lowest_set_bit_andnot kernel never launched")
-    emit({"phase": "byzantine", "nodes_down": 1024, "ms": BYZ_MS,
-          **{k: v for k, v in out.items() if not k.startswith("_")}})
-    return out
+def sweep_configs() -> list:
+    """BASELINE config 3: Handel at SWEEP_NODES under default_params, the
+    byzantineSuicide attack at each fraction of SWEEP_FRACTIONS (none at
+    0%)."""
+    return [SweepConfig("byzSuicide", dr, default_params(
+        SWEEP_NODES, dead_ratio=dr, byzantine_suicide=dr > 0)) for dr in SWEEP_FRACTIONS]
+
+
+def cities_config():
+    """The allScenarios "111" corner at levelWaitTime 50: the CITIES builder
+    with UniformSpeed and 20% Tor, NetworkLatencyByCityWJitter, 20% dead,
+    a 100-ms desynchronized start."""
+    return log_start_time_configs(SWEEP_NODES, dead=0.2, tor=0.2)[2]
+
+
+def _row0_stats(states) -> dict:
+    """run_sweep's BasicStats over row 0's live nodes."""
+    live = ~states.down[0].cpu().numpy()
+    d = states.done_at[0].cpu().numpy()[live]
+    r = states.msg_received[0].cpu().numpy()[live]
+    p = states.proto
+    return {"done_at_min": int(d.min()), "done_at_avg": int(d.mean()),
+            "done_at_max": int(d.max()), "msg_rcv_min": int(r.min()),
+            "msg_rcv_avg": int(r.mean()), "msg_rcv_max": int(r.max()),
+            "msg_filtered_avg": int(p["msg_filtered"][0].cpu().numpy()[live].mean()),
+            "sigs_checked_avg": int(p["sigs_checked"][0].cpu().numpy()[live].mean())}
+
+
+@contextlib.contextmanager
+def _group_probe(window_phase=None):
+    """Instrument BatchedNetwork.run_ms_batched while run_sweep drives its
+    groups: each call's wall seconds, executed ticks, launches, peak
+    memory, row 0's numbers and every row's completion.  With
+    `window_phase`, a LOCKSTEP_PROFILE_TICKS torch.profiler window runs
+    inside the call from tick PROFILE_FROM (its ticks left out of the
+    wall time, which is scaled to the whole run), and the eligibility rows
+    (byz, bl) of that tick are kept for the kernel timings.  Chunked calls
+    give the state one call gives: the loop's stop test runs before every
+    tick either way."""
+    orig = BatchedNetwork.run_ms_batched
+    calls, inside = [], []
+
+    def run(net, states, ms, stop_when_done=False):
+        if inside:
+            return orig(net, states, ms, stop_when_done)
+        inside.append(True)
+        try:
+            before = {k.name: k.launches for k in kernels.KERNELS}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            window = real = None
+            t0 = time.perf_counter()
+            if window_phase:
+                states = orig(net, states, PROFILE_FROM, stop_when_done)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                real = [(a.cpu(), b.cpu()) for a, b in lowest_real_rows(net, states)]
+                states, window = _profile_ticks(net, states, LOCKSTEP_PROFILE_TICKS,
+                                                window_phase, stop_when_done)
+                t0 = time.perf_counter()
+                states = orig(net, states, ms - PROFILE_FROM - LOCKSTEP_PROFILE_TICKS,
+                              stop_when_done)
+            else:
+                wall = 0.0
+                states = orig(net, states, ms, stop_when_done)
+            torch.cuda.synchronize()
+            wall += time.perf_counter() - t0
+            done = states.done_at.cpu().numpy()
+            down = states.down.cpu().numpy()
+            undone = ((done == 0) & ~down).sum(-1).tolist()
+            all_done = not any(undone)
+            # the lockstep loop stops before the tick after the last completion
+            ticks = int(done.max()) + 1 if stop_when_done and all_done else ms
+            if window is not None:
+                wall *= ticks / (ticks - LOCKSTEP_PROFILE_TICKS)
+                window["device_busy_share"] = window["device_ms_per_tick"] / (wall / ticks * 1e3)
+            p = states.proto
+            calls.append({
+                "replicas": int(done.shape[0]), "ticks": ticks, "wall_s": wall,
+                "ms_per_tick": wall / ticks * 1e3,
+                "launches": {k.name: k.launches - before[k.name] for k in kernels.KERNELS},
+                "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                "undone_by_row": undone, "dropped": int(states.dropped.sum()),
+                "displaced": int(p["displaced"].sum()),
+                "row0": _row0_stats(states),
+                "row0_sums": {"done": int((done[0] > 0).sum()),
+                              "msg_received": int(states.msg_received[0].to(torch.int64).sum()),
+                              "msg_filtered": int(p["msg_filtered"][0].to(torch.int64).sum()),
+                              "sigs_checked": int(p["sigs_checked"][0].to(torch.int64).sum())},
+                "_window": window, "_real": real,
+            })
+            return states
+        finally:
+            inside.pop()
+
+    BatchedNetwork.run_ms_batched = run
+    try:
+        yield calls
+    finally:
+        BatchedNetwork.run_ms_batched = orig
+
+
+@torch.inference_mode()
+def sweep_point(task: tuple) -> dict:
+    """One group of a sweep in a worker process, as a user runs it:
+    run_sweep over the one config (run_sweep([config], seed0)) with the
+    launch counts zeroed just before and read just after; ("sweep", i) is
+    point i of sweep_configs() at seed0 1000 * i, the seeds its rows have
+    in the whole list, ("cities", 0) the cities configuration."""
+    _one_thread()
+    what, i = task
+    if what == "sweep":
+        cfg, ms, stop = sweep_configs()[i], SWEEP_MS, True
+        window = "sweep_profile" if i == SWEEP_PROFILE_POINT else None
+    else:
+        cfg, ms, stop, window = cities_config(), CITIES_MS, False, None
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _group_probe(window) as calls:
+        stats = run_sweep([cfg], replicas=SWEEP_REPLICAS, sim_ms=ms, seed0=1000 * i,
+                          stop_when_done=stop)
+    (call,) = calls
+    return {"what": what, "point": i, "value": cfg.value, "stats": stats[0].row(),
+            "seconds": time.perf_counter() - t0,
+            "sweep_launches": {k.name: k.launches for k in kernels.KERNELS}, **call}
+
+
+def sweeps(points: bool, cities: bool) -> dict:
+    """The `sweep` and `cities` phases in one pool of worker processes, all
+    started together: each group of BASELINE config 3's sweep (one per
+    Byzantine fraction: a fraction changes the threshold, a traced
+    parameter, so run_sweep runs six groups of SWEEP_REPLICAS rows) and
+    the cities run hold one core each on the host, and the card serves
+    them in turn.  Every worker is joined or terminated when the phase
+    ends."""
+    tasks = ([("sweep", i) for i in reversed(range(len(SWEEP_FRACTIONS)))] if points else [])
+    tasks += [("cities", 0)] if cities else []
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(len(tasks)) as pool:
+        outs = pool.map(sweep_point, tasks, chunksize=1)
+        pool.close()
+        pool.join()
+    elapsed = time.perf_counter() - t0
+    res = {}
+    if points:
+        res["sweep"] = _sweep_checks([o for o in outs if o["what"] == "sweep"], elapsed)
+    if cities:
+        res["cities"] = _cities_checks([o for o in outs if o["what"] == "cities"][0])
+    return res
+
+
+def _sweep_checks(outs: list, elapsed: float) -> dict:
+    outs = sorted(outs, key=lambda o: o["point"])
+    csv = CSVFormatter("byzSuicide", CSV_FIELDS)
+    for o in outs:
+        csv.add({"id": "byzSuicide", "nodes": SWEEP_NODES, "value": o["value"], **o["stats"]})
+        window = o.pop("_window")
+        real = o.pop("_real")
+        if window is not None:
+            emit(window)
+            o["kernels_per_tick"] = window["kernels_per_tick"]
+            o["device_ms_per_tick"] = window["device_ms_per_tick"]
+            o["device_busy_share"] = window["device_busy_share"]
+            o["real_rows"] = real
+        emit({"phase": "sweep_group", **{k: v for k, v in o.items() if k != "real_rows"}})
+    emit({"phase": "sweep_csv", "csv": csv.to_string()})
+    launches = {k.name: sum(o["sweep_launches"][k.name] for o in outs) for k in kernels.KERNELS}
+    run_s = max(o["wall_s"] for o in outs)
+    row = {"phase": "sweep", "nodes": SWEEP_NODES, "replicas": SWEEP_REPLICAS,
+           "points": len(outs), "rows": SWEEP_REPLICAS * len(outs), "elapsed_s": elapsed,
+           "run_s": run_s, "sims_per_s": SWEEP_REPLICAS * len(outs) / run_s,
+           "ticks": {str(o["value"]): o["ticks"] for o in outs},
+           "ms_per_tick": {str(o["value"]): o["ms_per_tick"] for o in outs},
+           "max_memory_allocated": max(o["max_memory_allocated"] for o in outs),
+           "dropped": sum(o["dropped"] for o in outs),
+           "displaced": sum(o["displaced"] for o in outs), "launches": launches,
+           "undone_by_row": {str(o["value"]): o["undone_by_row"] for o in outs},
+           "row0": {str(o["value"]): {"ticks": o["ticks"], **o["row0"]} for o in outs}}
+    emit(row)
+    for o in outs:
+        want_undone = SWEEP_UNDONE.get(o["value"], [0] * SWEEP_REPLICAS)
+        if o["undone_by_row"] != want_undone:
+            raise AssertionError(f"sweep {o['value']}: live nodes undone by row "
+                                 f"{o['undone_by_row']}, the JAX package's {want_undone}")
+        if not any(want_undone) and o["stats"]["done_at_min"] <= 0:
+            raise AssertionError(f"sweep {o['value']}: not every live node finished")
+        if o["dropped"]:
+            raise AssertionError(f"sweep {o['value']}: {o['dropped']} messages dropped")
+        names = ("popcount_words", "popcount_binop", "cand_score") + (
+            ("lowest_set_bit_andnot",) if o["value"] > 0 else ())
+        for name in names:
+            if o["sweep_launches"][name] <= 0:
+                raise AssertionError(f"sweep {o['value']}: {name} kernel never launched")
+        want = SWEEP_R0.get(o["value"])
+        if want is not None:
+            _check_replica0(f"sweep {o['value']}", {"ticks": o["ticks"], **o["row0"]}, want)
+    by = {o["value"]: o["stats"] for o in outs}
+    if len(by) == len(SWEEP_FRACTIONS) and not by[SWEEP_FRACTIONS[-1]]["done_at_avg"] \
+            > by[0.0]["done_at_avg"]:
+        raise AssertionError("sweep: the 25% point's done_at_avg is not above the 0% point's")
+    row["_real"] = next(o["real_rows"] for o in outs if "real_rows" in o)
+    return row
+
+
+def _cities_checks(o: dict) -> dict:
+    o.pop("_window")
+    o.pop("_real")
+    row = {"phase": "cities", "nodes": SWEEP_NODES, **o}
+    emit(row)
+    if o["dropped"]:
+        raise AssertionError(f"cities: {o['dropped']} messages dropped")
+    for name in ("popcount_words", "popcount_binop", "cand_score"):
+        if o["sweep_launches"][name] <= 0:
+            raise AssertionError(f"cities: {name} kernel never launched")
+    if CITIES_R0 is not None:
+        _check_replica0("cities", o["row0_sums"], CITIES_R0)
+    row["launches"] = o["sweep_launches"]
+    return row
 
 
 def gsf() -> dict:
@@ -1631,6 +1963,16 @@ def gsf() -> dict:
     return out
 
 
+def p2p_replica0(states) -> dict:
+    """P2PHandel's replica-0 counters (P2P_R0)."""
+    p = states.proto
+    return {"msg_received": int(states.msg_received[0].sum()),
+            "msg_sent": int(states.msg_sent[0].sum()),
+            "done": int((states.done_at[0] > 0).sum()),
+            **{k: int(p[k][0].to(torch.int64).sum()) for k in (
+                "verified", "ver_card", "ver_sig", "peers_state", "ver_done_t", "last_check")}}
+
+
 def p2phandel() -> dict:
     """P2PHandel at the reference defaults (120 nodes, 40 connections),
     R = P2P_REPLICAS, P2P_MS ms on the 512-row wheel, with p2p_profile
@@ -1646,11 +1988,7 @@ def p2phandel() -> dict:
     done = states.done_at.cpu().numpy()
     down = states.down.cpu().numpy()
     dropped = states.dropped.cpu().numpy()
-    p = states.proto
-    r0 = {"msg_received": int(states.msg_received[0].sum()),
-          "msg_sent": int(states.msg_sent[0].sum()), "done": int((done[0] > 0).sum()),
-          **{k: int(p[k][0].to(torch.int64).sum()) for k in (
-              "verified", "ver_card", "ver_sig", "peers_state", "ver_done_t", "last_check")}}
+    r0 = p2p_replica0(states)
     out = {"nodes": int(done.shape[1]), "replicas": P2P_REPLICAS, "build_s": build_s,
            "wall_s": wall, "sims_per_s": P2P_REPLICAS / wall, "ticks": ticks,
            "ms_per_tick": wall / ticks * 1e3, "launches": launches,
@@ -2048,10 +2386,27 @@ def _profiled_run(net, states, ms: int, at: int, phase: str):
     return states, wall, ms, launches, window
 
 
+def eth2_cards(states) -> np.ndarray:
+    """[R, N] incoming contributions per node: at every level complete,
+    1 + 1 + 2 + ... + 128 for the height-1001 process, the other slots
+    still empty."""
+    inc = states.proto["inc"]
+    return bitops.popcount_words(inc.reshape(inc.shape[0], ETH2_NODES, -1)).cpu().numpy()
+
+
+def eth2_replica0(states) -> dict:
+    """HandelEth2's replica-0 traffic (ETH2_R0)."""
+    p = states.proto
+    return {"msg_received": int(states.msg_received[0].sum()),
+            "msg_sent": int(states.msg_sent[0].sum()),
+            "rr_bump": int(p["rr_bump"][0].sum()),
+            "window_min": int(p["window"][0].min()), "window_max": int(p["window"][0].max())}
+
+
 def handeleth2() -> dict:
     """HandelEth2 at 256 nodes (the default parameters otherwise), R =
     ETH2_REPLICAS, ETH2_MS ms on the 512-row wheel, with eth2_profile at
-    ticks 1000-1019."""
+    ticks 1000-1009."""
     t_build = time.perf_counter()
     net, state = make_handeleth2(HandelEth2Parameters(node_count=ETH2_NODES))
     states = replicate_state(state, ETH2_REPLICAS)
@@ -2059,25 +2414,16 @@ def handeleth2() -> dict:
     build_s = time.perf_counter() - t_build
     states, wall, ticks, launches, window = _profiled_run(net, states, ETH2_MS, 1000,
                                                           "eth2_profile")
-    p = states.proto
     dropped = states.dropped.cpu().numpy()
     if dropped.any():
         raise AssertionError(f"handeleth2: {int(dropped.sum())} messages dropped")
-    # the height-1001 process complete at every level: 1 + 1 + 2 + ... +
-    # 128 incoming contributions per node, the other slots still empty
-    card = bitops.popcount_words(p["inc"].reshape(ETH2_REPLICAS, ETH2_NODES, -1)).cpu().numpy()
+    card = eth2_cards(states)
     if not (card == ETH2_NODES).all():
         short = np.argwhere(card != ETH2_NODES)
         raise AssertionError(f"handeleth2: {len(short)} (replica, node) pairs short of "
                              f"{ETH2_NODES}, first {short[:5].tolist()}")
-    r0 = {"msg_received": int(states.msg_received[0].sum()),
-          "msg_sent": int(states.msg_sent[0].sum()),
-          "rr_bump": int(p["rr_bump"][0].sum()),
-          "window_min": int(p["window"][0].min()), "window_max": int(p["window"][0].max())}
-    want = {"msg_received": 21711, "msg_sent": 21960, "rr_bump": 21711, "window_min": 128,
-            "window_max": 128}
-    if r0 != want:
-        raise AssertionError(f"handeleth2: replica 0 gives {r0}, the JAX package {want}")
+    r0 = eth2_replica0(states)
+    _check_replica0("handeleth2", r0, ETH2_R0)
     for name in ("popcount_words", "popcount_binop"):
         if launches[name] <= 0:
             raise AssertionError(f"handeleth2: {name} kernel never launched")
@@ -2094,32 +2440,37 @@ def handeleth2() -> dict:
     return out
 
 
+def sf_replica0(states) -> dict:
+    """SanFermin's replica-0 outcome (SF_R0)."""
+    p = states.proto
+    done = p["done"][0].cpu().numpy()
+    thr = p["thr_at"][0].cpu().numpy()[done]
+    q = np.percentile(thr, [10, 50, 90], method="nearest").astype(int).tolist() if thr.size else []
+    return {"done": int(done.sum()), "thr_at_p10_p50_p90": q,
+            "thr_at_min": int(thr.min()) if thr.size else None,
+            "thr_at_max": int(thr.max()) if thr.size else None,
+            "msg_received": int(states.msg_received[0].sum()),
+            "sent_req": int(p["sent_req"][0].sum())}
+
+
 def sanfermin() -> dict:
     """SanFermin at 4096 nodes (BASELINE config 5 with Dfinity), capacity
     SF_CAPACITY, R = SF_REPLICAS, SF_MS ms, with sf_profile at ticks
-    1500-1519."""
+    1000-1009."""
     t_build = time.perf_counter()
     net, state = make_sanfermin(sf_params(SF_NODES), capacity=SF_CAPACITY)
     states = replicate_state(state, SF_REPLICAS)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t_build
-    states, wall, ticks, launches, window = _profiled_run(net, states, SF_MS, 1500, "sf_profile")
+    states, wall, ticks, launches, window = _profiled_run(net, states, SF_MS, SF_PROFILE_AT,
+                                                          "sf_profile")
     p = states.proto
     dropped = states.dropped.cpu().numpy()
     if dropped.any():
         raise AssertionError(f"sanfermin: {int(dropped.sum())} messages dropped")
     done = p["done"].cpu().numpy()
-    thr = p["thr_at"][0].cpu().numpy()[done[0]]
-    q = np.percentile(thr, [10, 50, 90], method="nearest").astype(int).tolist() if thr.size else []
-    r0 = {"done": int(done[0].sum()), "thr_at_p10_p50_p90": q,
-          "thr_at_min": int(thr.min()) if thr.size else None,
-          "thr_at_max": int(thr.max()) if thr.size else None,
-          "msg_received": int(states.msg_received[0].sum()),
-          "sent_req": int(p["sent_req"][0].sum())}
-    want = {"done": 4078, "thr_at_p10_p50_p90": [1044, 1260, 1580], "thr_at_min": 815,
-            "thr_at_max": 2109, "msg_received": 156424, "sent_req": 91655}
-    if r0 != want:
-        raise AssertionError(f"sanfermin: replica 0 gives {r0}, the JAX package {want}")
+    r0 = sf_replica0(states)
+    _check_replica0("sanfermin", r0, SF_R0)
     per_replica = done.sum(-1)
     out = {"nodes": SF_NODES, "replicas": SF_REPLICAS, "ms": SF_MS, "capacity": SF_CAPACITY,
            "build_s": build_s, "wall_s": wall, "ms_per_tick": wall / ticks * 1e3,
@@ -2329,10 +2680,24 @@ def optimistic() -> dict:
     return out
 
 
+def cappos_replica0(states) -> dict:
+    """SanFerminCappos's replica-0 outcome (CAPPOS_R0)."""
+    p = states.proto
+    done, thr_done = p["done"][0].cpu().numpy(), p["thr_done"][0].cpu().numpy()
+    d0 = states.done_at[0].cpu().numpy()[done]
+    t0 = p["thr_at"][0].cpu().numpy()[thr_done]
+    return {"done": int(done.sum()), "not_done": np.nonzero(~done)[0].tolist(),
+            "done_at_p10_p50_p90": _percentiles(d0), "done_at_min": int(d0.min()),
+            "done_at_max": int(d0.max()), "thr_done": int(thr_done.sum()),
+            "thr_at_p10_p50_p90": _percentiles(t0),
+            "msg_received": int(states.msg_received[0].sum()),
+            "msg_sent": int(states.msg_sent[0].sum()), "cpl": int(p["cpl"][0].sum())}
+
+
 def cappos() -> dict:
     """SanFerminCappos at 1024 nodes (threshold 512, 50 candidates),
     capacity CAPPOS_CAPACITY on the 512-row wheel, R = CAPPOS_REPLICAS,
-    CAPPOS_MS ms, with cappos_profile at ticks 300-319: nothing dropped,
+    CAPPOS_MS ms, with cappos_profile at ticks 300-309: nothing dropped,
     replica 0 equal to the JAX package's seed-0 run.  Its path calls no
     hand-written kernel (the per-ms loop reads no wheel occupancy)."""
     t_build = time.perf_counter()
@@ -2343,16 +2708,8 @@ def cappos() -> dict:
     build_s = time.perf_counter() - t_build
     states, wall, ticks, launches, window = _profiled_run(net, states, CAPPOS_MS,
                                                           CAPPOS_PROFILE_AT, "cappos_profile")
-    p = states.proto
-    done, thr_done = p["done"].cpu().numpy(), p["thr_done"].cpu().numpy()
-    done_at, thr_at = states.done_at.cpu().numpy(), p["thr_at"].cpu().numpy()
-    d0, t0 = done_at[0][done[0]], thr_at[0][thr_done[0]]
-    r0 = {"done": int(done[0].sum()), "not_done": np.nonzero(~done[0])[0].tolist(),
-          "done_at_p10_p50_p90": _percentiles(d0), "done_at_min": int(d0.min()),
-          "done_at_max": int(d0.max()), "thr_done": int(thr_done[0].sum()),
-          "thr_at_p10_p50_p90": _percentiles(t0),
-          "msg_received": int(states.msg_received[0].sum()),
-          "msg_sent": int(states.msg_sent[0].sum()), "cpl": int(p["cpl"][0].sum())}
+    done, done_at = states.proto["done"].cpu().numpy(), states.done_at.cpu().numpy()
+    r0 = cappos_replica0(states)
     out = {"phase": "cappos", "nodes": net.n_nodes, "replicas": CAPPOS_REPLICAS,
            "ms": CAPPOS_MS, "capacity": CAPPOS_CAPACITY, "wheel_slots": net.wheel_slots,
            "build_s": build_s, "ticks": ticks, "wall_s": wall,
@@ -2502,7 +2859,7 @@ def ethpow() -> dict:
     ETH_REPLICAS, ETH_MS ms through the event loop, honest and under each
     selfish miner at 45%: nothing overflows, the selfish mean revenue
     ratio is above 0.5, replica 0 equals the JAX package's seed-0 run
-    (ETH_R0).  Each config's ethpow_<config>_profile is a 20-iteration
+    (ETH_R0).  Each config's ethpow_<config>_profile is a 10-iteration
     window from iteration 100.  No hand-written kernel on its path."""
     out = {"phase": "ethpow", "replicas": ETH_REPLICAS, "ms": ETH_MS, "configs": {}}
     total_launches = {k.name: 0 for k in kernels.KERNELS}
@@ -2603,6 +2960,7 @@ def _exp_binade(e: int, device: str) -> torch.Tensor:
     return (1.0 - exp_f32(x.to(device))).view(torch.int32).cpu()
 
 
+@torch.inference_mode()
 def exp_digests(device: str) -> list:
     """sha256 of _exp_binade's bits for each binade of EXP_COVERED."""
     if device == "cpu":
@@ -2916,12 +3274,13 @@ def paxos() -> dict:
     return out
 
 
-PHASES = ("kernels", "identity", "flagship", "telemetry", "byzantine", "pingpong",
-          "faults_pingpong", "pingpong_tele", "dfinity", "gsf", "p2phandel", "handeleth2", "sanfermin", "casper", "paxos", "slush",
-          "snowflake", "p2pflood", "optimistic", "cappos", "enr", "ethpow", "miner_env",
-          "attack_env")
+PHASES = ("kernels", "identity", "flagship", "telemetry", "sweep", "cities", "pingpong",
+          "faults_pingpong", "pingpong_tele", "dfinity", "gsf", "p2phandel", "handeleth2",
+          "sanfermin", "casper", "paxos", "slush", "snowflake", "p2pflood", "optimistic",
+          "cappos", "enr", "ethpow", "miner_env", "attack_env")
 
 
+@torch.inference_mode()
 def main(argv) -> int:
     # `--phases a,b` runs a subset (for development); the default runs every
     # phase and ends with the kernels line
@@ -2962,13 +3321,15 @@ def main(argv) -> int:
         lap("telemetry")
     if flag is not None:
         del flag["_states"]
-    if want("byzantine"):
-        runs["byzantine"] = byz = byzantine()
-        real = lowest_real_rows(byz.pop("_net"), byz.pop("_states"))
-        lowest_rows, andnot_rows = lowest_bucket_times(real), andnot_bucket_times(real)
-        emit({"phase": "byz_rows", "lowest_set_bit": lowest_rows,
-              "lowest_set_bit_andnot": andnot_rows})
-        lap("byzantine")
+    if want("sweep") or want("cities"):
+        runs.update(sweeps(want("sweep"), want("cities")))
+        if "sweep" in runs:
+            # the 25% group's eligibility rows at its window's first tick
+            real = [(a.cuda(), b.cuda()) for a, b in runs["sweep"].pop("_real")]
+            lowest_rows, andnot_rows = lowest_bucket_times(real), andnot_bucket_times(real)
+            emit({"phase": "byz_rows", "lowest_set_bit": lowest_rows,
+                  "lowest_set_bit_andnot": andnot_rows})
+        lap("sweep")
     pp_states = None
     if want("pingpong"):
         runs["pingpong"] = pp = pingpong()
@@ -3016,12 +3377,13 @@ def main(argv) -> int:
             rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], row["max_abs_err"])
         # launches: each kernel's count from the run of its path — the
         # popcount family from the flagship, lowest_set_bit_andnot from
-        # the Byzantine run (the flagship runs no attack), lowest_set_bit
+        # the Byzantine sweep (the flagship runs no attack), lowest_set_bit
         # and pack_occupied from the PingPong run, pack_bool_words from
         # the P2PHandel run
         for name in ("popcount_words", "popcount_binop", "cand_score"):
             rows[name]["launches"] = flag["launches"][name]
-        rows["lowest_set_bit_andnot"]["launches"] = byz["launches"]["lowest_set_bit_andnot"]
+        rows["lowest_set_bit_andnot"]["launches"] = \
+            runs["sweep"]["launches"]["lowest_set_bit_andnot"]
         for name in ("lowest_set_bit", "pack_occupied"):
             rows[name]["launches"] = pp["launches"][name]
         rows["pack_bool_words"]["launches"] = runs["p2phandel"]["launches"]["pack_bool_words"]

@@ -208,16 +208,50 @@ def test_new_entry_points_default_to_cuda(monkeypatch):
 
 def test_port_data_is_its_own():
     """The CITIES builder reads the port's own city tables (names,
-    positions and populations; no ping matrix), and no port source names a
-    file of the JAX package."""
+    positions and populations), the city-matrix models the port's own copy
+    of the ping matrix (`data/city_latency.npz`), and no port source names
+    a file of the JAX package."""
     from wittgenstein_tpu_torch.core import geo
+    from wittgenstein_tpu_torch.tools import latency_csv
 
     data = PKG / "data" / "cities.json"
     assert geo._CITIES_JSON == data and data.is_file()
     assert data.stat().st_size < 16_000
     assert len(geo.latency_cities()) == 219
     assert len(geo.GeoAllCities().cities_position()) == 241
+    assert latency_csv.BAKED == PKG / "data" / "city_latency.npz" and latency_csv.BAKED.is_file()
+    assert latency_csv.BAKED.stat().st_size < 200_000
     for path in SOURCES:
         text = path.read_text()
-        for needle in ("wittgenstein_tpu/data", "wittgenstein_tpu.data", ".npz"):
+        for needle in ("wittgenstein_tpu/data", "wittgenstein_tpu.data"):
             assert needle not in text, f"{path.relative_to(ROOT)} names {needle!r}"
+        assert ".npz" not in text or path.name == "latency_csv.py", path.name
+
+
+def test_sweep_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    """The sweep runner, the Handel batteries and their command line, and
+    the batched-protocol registry's factories: CUDA unless asked for the
+    CPU, and without a card the default raises; the new modules are among
+    the sources held free of JAX imports."""
+    from wittgenstein_tpu_torch.core.registries import registry_batched_protocols
+    from wittgenstein_tpu_torch.scenarios import handel_scenarios
+    from wittgenstein_tpu_torch.scenarios.sweep import run_sweep
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    configs = handel_scenarios.desync_configs(16)[:1]
+    for run in (lambda: run_sweep(configs, replicas=1, sim_ms=5),
+                lambda: handel_scenarios.run_scenario("desync", 16, 1, 5),
+                lambda: handel_scenarios.main(["desync", "--nodes", "16", "--sim-ms", "5"]),
+                lambda: registry_batched_protocols.get("pingpong").factory()):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run()
+    out = tmp_path / "desync.csv"
+    handel_scenarios.main(["desync", "--nodes", "16", "--replicas", "1", "--sim-ms", "5",
+                           "--device", "cpu", "--out", str(out)])
+    assert out.read_text().startswith("desync\nid,nodes,value,")
+    net, _ = registry_batched_protocols.get("pingpong").factory(device="cpu")
+    assert net.device.type == "cpu"
+    names = {str(p.relative_to(PKG)) for p in SOURCES if p.parent.name in ("scenarios", "tools")}
+    assert names == {"scenarios/__init__.py", "scenarios/sweep.py",
+                     "scenarios/handel_scenarios.py", "tools/__init__.py",
+                     "tools/latency_csv.py", "tools/csv_formatter.py", "tools/graph.py"}

@@ -108,23 +108,28 @@ def test_vec_latency_matches():
 
 
 def test_only_default_models_are_registered():
-    """The ported names resolve to the JAX package's classes; every other
-    name raises and names itself."""
+    """Every registered name resolves to the JAX package's class (the full
+    registries: tests/test_torch_registries.py and
+    tests/test_torch_latency_city.py); a name neither registry knows
+    raises ValueError in both, and names itself."""
     assert builder_name("AWS", True, 0.0) == jbuilder_name("AWS", True, 0.0) == AWS_BUILDER
     for name in (None, "NetworkLatencyByDistanceWJitter", "AwsRegionNetworkLatency",
-                 "IC3NetworkLatency"):
+                 "IC3NetworkLatency", "NetworkLatencyByCity", "NetworkLatencyByCityWJitter",
+                 "EthScanNetworkLatency", "NetworkFixedLatency(100)",
+                 "NetworkUniformLatency(8000)"):
         assert type(tlats.get_by_name(name)).__name__ == type(jlats.get_by_name(name)).__name__
-    for name in (None, AWS_BUILDER, builder_name("CITIES", True, 0.0)):
+    for name in (None, AWS_BUILDER, builder_name("CITIES", True, 0.0),
+                 builder_name("CITIES", False, 0.0), builder_name("AWS", False, 0.0),
+                 builder_name("AWS", True, 0.1), builder_name("RANDOM", True, 0.33)):
         assert type(tbuilders.get_by_name(name)).__name__ == type(
             jbuilders.get_by_name(name)).__name__
-    for name in (builder_name("CITIES", False, 0.0), builder_name("AWS", False, 0.0),
-                 builder_name("AWS", True, 0.1), builder_name("RANDOM", True, 0.33)):
-        with pytest.raises(NotImplementedError, match=name):
-            tbuilders.get_by_name(name)
-    for name in ("NetworkLatencyByCity", "NetworkLatencyByCityWJitter",
-                 "EthScanNetworkLatency", "NetworkFixedLatency(7)", "NetworkUniformLatency(7)"):
-        with pytest.raises(NotImplementedError, match=name.split("(")[0]):
-            tlats.get_by_name(name)
+    for reg in (tbuilders, jbuilders):
+        with pytest.raises(ValueError, match="RANDOM_SPEED=FAST"):
+            reg.get_by_name("RANDOM_SPEED=FAST")
+    for reg in (tlats, jlats):
+        for name in ("NetworkFixedLatency(7)", "NetworkUniformLatency(7)", "NoSuchLatency"):
+            with pytest.raises(ValueError, match=name.split("(")[0]):
+                reg.get_by_name(name)
 
 
 def test_aws_city_table_matches():

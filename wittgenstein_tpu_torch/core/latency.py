@@ -1,10 +1,13 @@
 """Network latency models, vectorized over the replica axis.
 
-Reference semantics: core NetworkLatency.java.  The port keeps six
-models: the default `NetworkLatencyByDistanceWJitter` with its exact
-host table, `AwsRegionNetworkLatency` (the AWS-region ping matrix),
-`IC3NetworkLatency` (area quantiles of the distance), and the fixed,
-uniform and no-latency models, with the shared
+Reference semantics: core NetworkLatency.java.  The port keeps all ten
+models of the JAX package: the default `NetworkLatencyByDistanceWJitter`
+with its exact host table, `AwsRegionNetworkLatency` (the AWS-region
+ping matrix), `NetworkLatencyByCity` and `NetworkLatencyByCityWJitter`
+(the wondernetwork city matrix, tools/latency_csv.py),
+`MeasuredNetworkLatency` and `EthScanNetworkLatency` (100-bucket
+measured distributions), `IC3NetworkLatency` (area quantiles of the
+distance), and the fixed, uniform and no-latency models, with the shared
 `vec_latency` wrapper (NetworkLatency.getLatency,
 NetworkLatency.java:27-34) and the toroidal distance with its
 integer-sqrt snap.  All randomness is externalized into `delta` in
@@ -24,8 +27,8 @@ import torch
 
 from ..ops.indexing import take
 from ..utils.gpd import GeneralizedParetoDistribution
-from ..utils.javaops import jint
-from .geo import MAX_DIST, MAX_X, MAX_Y
+from ..utils.javaops import java_int_div, jint, jround
+from .geo import DEFAULT_CITY, MAX_DIST, MAX_X, MAX_Y
 
 _WAN_GPD = GeneralizedParetoDistribution(1.4, -0.3, 0.35)
 # delta only ever takes 100 values: precompute the jitter table once.
@@ -43,6 +46,21 @@ def _on_device(key: str, host: np.ndarray, device: torch.device) -> torch.Tensor
 
 
 class NetworkLatency:
+    def get_extended_latency(self, from_node, to_node, delta: int) -> int:
+        raise NotImplementedError
+
+    def _check_delta(self, delta: int) -> None:
+        if delta < 0 or delta > 99:
+            raise ValueError(f"delta={delta}")
+
+    def get_latency(self, from_node, to_node, delta: int) -> int:
+        """The scalar getLatency (NetworkLatency.java:27-34)."""
+        if from_node is to_node:
+            return 1
+        base = from_node.extra_latency + to_node.extra_latency
+        base += self.get_extended_latency(from_node, to_node, delta)
+        return max(1, base)
+
     def ext_vec(self, static: "LatencyStatic", from_idx, to_idx, delta):
         """Latencies for index arrays, before the shared extra-latency
         and clamp terms of `vec_latency`; override per model."""
@@ -114,6 +132,13 @@ class NetworkLatencyByDistanceWJitter(NetworkLatency):
         return table[(dist * 100 + delta).to(torch.int64)]
 
 
+def _wrapped(idx: torch.Tensor, size: int) -> torch.Tensor:
+    """A table index as JAX's gather reads it: a negative index counts
+    from the end (a node outside the city index, -1, reads the last
+    city), and never a negative address on the device."""
+    return torch.remainder(idx, size).to(torch.int64)
+
+
 AWS_REGION_PER_CITY: Dict[str, int] = {
     "Oregon": 0,
     "Virginia": 1,
@@ -173,12 +198,150 @@ class AwsRegionNetworkLatency(NetworkLatency):
         m = _on_device("aws_oneway", self.ONEWAY, dev)
         jit = _on_device("aws_jitter", self.JITTER_I32, dev)
         regions = self.ONEWAY.shape[0]
-        # floor modulo: JAX's wrap of a negative index, never a negative
-        # index on the device
-        r1 = torch.remainder(take(static.city_idx, from_idx), regions).to(torch.int64)
-        r2 = torch.remainder(take(static.city_idx, to_idx), regions).to(torch.int64)
-        lat = torch.clamp(m[r1 * regions + r2] + jit[delta.to(torch.int64)], min=1)
+        r1 = take(static.city_idx, from_idx)
+        r2 = take(static.city_idx, to_idx)
+        lat = torch.clamp(m[_wrapped(r1, regions) * regions + _wrapped(r2, regions)]
+                          + jit[delta.to(torch.int64)], min=1)
+        # the same-region test on the indices as stored, as JAX compares them
         return torch.where(r1 == r2, 1, lat)
+
+
+class NetworkLatencyByCity(NetworkLatency):
+    """Half the city-to-city round trip, rounded, at least 1
+    (NetworkLatency.java:165-198).  The vectorized form reads each node's
+    city from `city_idx`, which the builders fill from `city_index`."""
+
+    def __init__(self, reader=None):
+        if reader is None:
+            from ..tools.latency_csv import CSVLatencyReader
+
+            reader = CSVLatencyReader()
+        self._index = reader.city_index()
+        self._matrix = reader.matrix()
+
+    @property
+    def city_index(self):
+        return self._index
+
+    def _city_lat(self, city_from: str, city_to: str) -> float:
+        return float(self._matrix[self._index[city_from], self._index[city_to]])
+
+    def _check_cities(self, from_node, to_node) -> None:
+        if DEFAULT_CITY in (from_node.city_name, to_node.city_name):
+            raise ValueError("Can't use NetworkLatencyByCity model with default city location")
+
+    def get_extended_latency(self, from_node, to_node, delta: int) -> int:
+        if from_node.node_id == to_node.node_id:
+            return 1
+        self._check_cities(from_node, to_node)
+        raw = np.float32(0.5) * np.float32(self._city_lat(from_node.city_name, to_node.city_name))
+        return max(1, jround(float(raw)))
+
+    def _pair(self, static, from_idx, to_idx):
+        """(c1, c2, m[c1, c2]) with JAX's reading of a -1 city."""
+        c = self._matrix.shape[0]
+        m = _on_device("city_matrix", self._matrix, static.city_idx.device)
+        c1 = take(static.city_idx, from_idx)
+        c2 = take(static.city_idx, to_idx)
+        return c1, c2, m[_wrapped(c1, c) * c + _wrapped(c2, c)]
+
+    def ext_vec(self, static, from_idx, to_idx, delta):
+        _, _, m = self._pair(static, from_idx, to_idx)
+        lat = torch.clamp(torch.floor(m * 0.5 + 0.5).to(torch.int32), min=1)
+        return torch.where(from_idx == to_idx, 1, lat)
+
+
+class NetworkLatencyByCityWJitter(NetworkLatencyByCity):
+    """The city matrix plus the WAN jitter, same-city round trip taken as
+    10 ms (NetworkLatency.java:200-233).  The vectorized form computes in
+    float32, as the JAX form does: base + jitter, then floor(0.5 * raw +
+    0.5), at least 1."""
+
+    SAME_CITY_RTT = 10.0
+    JITTER_F32 = JITTER_TABLE.astype(np.float32)
+
+    def get_extended_latency(self, from_node, to_node, delta: int) -> int:
+        if from_node.node_id == to_node.node_id:
+            return 1
+        self._check_cities(from_node, to_node)
+        raw = float(JITTER_TABLE[delta])
+        if from_node.city_name == to_node.city_name:
+            raw += self.SAME_CITY_RTT
+        else:
+            raw += self._city_lat(from_node.city_name, to_node.city_name)
+        return max(1, jint(jround(0.5 * raw)))
+
+    def ext_vec(self, static, from_idx, to_idx, delta):
+        c1, c2, m = self._pair(static, from_idx, to_idx)
+        jit = _on_device("city_jitter", self.JITTER_F32, m.device)
+        # the same-city test on the indices as stored: -1 meets only -1
+        base = torch.where(c1 == c2, torch.tensor(self.SAME_CITY_RTT, dtype=torch.float32,
+                                                   device=m.device), m)
+        raw = base + jit[delta.to(torch.int64)]
+        lat = torch.clamp(torch.floor(raw * 0.5 + 0.5).to(torch.int32), min=1)
+        return torch.where(from_idx == to_idx, 1, lat)
+
+
+class MeasuredNetworkLatency(NetworkLatency):
+    """A measured distribution as a 100-bucket inverse CDF
+    (NetworkLatency.java:270-310): the latency is bucket `delta`."""
+
+    def __init__(self, distrib_prop, distrib_val):
+        self.long_distrib = self._set_latency(distrib_prop, distrib_val)
+        # the JAX form reads the int64 table as int32
+        self._table = self.long_distrib.astype(np.int32)
+        self._key = "measured:" + ",".join(map(str, self._table.tolist()))
+
+    @staticmethod
+    def _set_latency(proportions, values) -> np.ndarray:
+        """Integer-step interpolation with Java's int division into an
+        int64 table (NetworkLatency.java:284-303)."""
+        out = np.zeros(100, dtype=np.int64)
+        li = 0
+        cur = 0
+        total = 0
+        for prop, val in zip(proportions, values):
+            if prop == 0:
+                cur = val
+                continue
+            total += prop
+            step = java_int_div(val - cur, prop)
+            for _ in range(prop):
+                cur += step
+                out[li] = cur
+                li += 1
+        if total != 100 or li != 100:
+            raise ValueError("proportions must sum to 100")
+        return out
+
+    def get_extended_latency(self, from_node, to_node, delta: int) -> int:
+        self._check_delta(delta)
+        return int(self.long_distrib[delta])
+
+    def ext_vec(self, static, from_idx, to_idx, delta):
+        return _on_device(self._key, self._table, delta.device)[delta.to(torch.int64)]
+
+
+class EthScanNetworkLatency(NetworkLatency):
+    """EthStats' block-propagation distribution
+    (NetworkLatency.java:360-378).  The reference delegates to
+    MeasuredNetworkLatency.getLatency, which adds the extra latencies and
+    clamps inside; both forms keep that (extras count twice)."""
+
+    DISTRIB_PROP = [16, 18, 17, 12, 8, 5, 4, 3, 3, 1, 1, 2, 1, 1, 8]
+    DISTRIB_VAL = [
+        250, 500, 1000, 1250, 1500, 1750, 2000, 2250, 2500, 2750,
+        4500, 6000, 8500, 9750, 10000,
+    ]
+
+    def __init__(self):
+        self._m = MeasuredNetworkLatency(self.DISTRIB_PROP, self.DISTRIB_VAL)
+
+    def get_extended_latency(self, from_node, to_node, delta: int) -> int:
+        return self._m.get_latency(from_node, to_node, delta)
+
+    def ext_vec(self, static, from_idx, to_idx, delta):
+        return vec_latency(self._m, static, from_idx, to_idx, delta)
 
 
 class IC3NetworkLatency(NetworkLatency):

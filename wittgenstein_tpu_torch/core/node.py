@@ -1,26 +1,87 @@
-"""Node identity and the node builders.
+"""Node identity, the node aspects and the node builders.
 
-Reference semantics: core Node.java (identity, position) and
+Reference semantics: core Node.java (identity, position, aspects) and
 NodeBuilder.java (id allocation, random positions, weighted city
-choice).  What the default builder, `builder_name("RANDOM", True, 0.0)`,
-and the AWS builder, `builder_name("AWS", True, 0.0)`, need: neither
-carries aspects, so a node draws exactly one `rd.next_int()` (its
-position, or its city and the city's position) and keeps speed ratio 1.0
-and extra latency 0 — the same JavaRandom stream, draw for draw, as the
-JAX package's builders.
-`build_node_columns` turns the population into the struct-of-arrays
-columns the batched engine reads.
+choice).  A node draws one `rd.next_int()` (its position, or its city
+and the city's position), then its builder's speed-ratio aspect, then
+its extra-latency aspect (Node.java:265-266), each only if the builder
+carries it — the same JavaRandom stream, draw for draw, as the JAX
+package's builders.  `build_node_columns` turns the population into the
+struct-of-arrays columns the batched engine reads.
 """
 
 from __future__ import annotations
 
+import copy as _copy
 from typing import Dict, List, Optional
 
 import numpy as np
 
+from ..utils.gpd import GeneralizedParetoDistribution
 from ..utils.javaops import i32, java_abs, java_mod, lshift32
 from ..utils.javarand import JavaRandom
 from .geo import DEFAULT_CITY, MAX_X, MAX_Y, CityInfo, Geo
+
+
+class Aspect:
+    """An optional per-node attribute sampler (Node.java:145-244)."""
+
+    def get_value(self, rd: JavaRandom):
+        return None
+
+
+class ExtraLatencyAspect(Aspect):
+    """Tor-style extra latency: 500 ms with probability `ratio`."""
+
+    def __init__(self, ratio: float):
+        self.ratio = ratio
+
+    def get_value(self, rd: JavaRandom):
+        return 500 if rd.next_double() < self.ratio else 0
+
+
+class SpeedRatioAspect(Aspect):
+    def __init__(self, speed_model: "SpeedModel"):
+        self.sm = speed_model
+
+    def get_value(self, rd: JavaRandom):
+        return self.sm.get_speed_ratio(rd)
+
+
+class SpeedModel:
+    def get_speed_ratio(self, rd: JavaRandom) -> float:
+        raise NotImplementedError
+
+
+class ParetoSpeed(SpeedModel):
+    def __init__(self, shape: float, location: float, scale: float, max_: float):
+        self.gpd = GeneralizedParetoDistribution(shape, location, scale)
+        self.max = max_
+
+    def get_speed_ratio(self, rd: JavaRandom) -> float:
+        return min(self.max, 1.0 + self.gpd.inverse_f(rd.next_double()))
+
+
+class GaussianSpeed(SpeedModel):
+    def get_speed_ratio(self, rd: JavaRandom) -> float:
+        return max(0.33, rd.next_gaussian() + 1)
+
+
+class UniformSpeed(SpeedModel):
+    """Uniform from 3x faster to 3x slower (Node.java:233-244)."""
+
+    def get_speed_ratio(self, rd: JavaRandom) -> float:
+        if rd.next_boolean():
+            return (rd.next_int(67) + 33) / 100.0
+        return (rd.next_int(200) + 100) / 100.0
+
+
+def _aspect_value(aspect_cls, aspects: List[Aspect], rd: JavaRandom, default):
+    """The first aspect of exactly `aspect_cls` draws; else `default`."""
+    for a in aspects:
+        if type(a) is aspect_cls:
+            return a.get_value(rd)
+    return default
 
 
 class Node:
@@ -47,8 +108,11 @@ class Node:
         if not (0 < self.y <= MAX_Y):
             raise ValueError(f"bad y={self.y}")
         self.byzantine = byzantine
-        self.speed_ratio = 1.0
-        self.extra_latency = 0
+        # speed first, then extra latency: the reference's draw order
+        self.speed_ratio = float(_aspect_value(SpeedRatioAspect, nb.aspects, rd, 1.0))
+        self.extra_latency = int(_aspect_value(ExtraLatencyAspect, nb.aspects, rd, 0))
+        if self.speed_ratio <= 0:
+            raise ValueError(f"speedRatio={self.speed_ratio}")
 
     def __repr__(self) -> str:
         return f"Node{{nodeId={self.node_id}}}"
@@ -57,6 +121,14 @@ class Node:
 class NodeBuilder:
     def __init__(self):
         self._node_ids = 0
+        self.aspects: List[Aspect] = []
+
+    def copy(self) -> "NodeBuilder":
+        """The same builder with node ids reset (NodeBuilder.java:42-52);
+        the aspects are shared, as in the Java shallow clone."""
+        nb = _copy.copy(self)
+        nb._node_ids = 0
+        return nb
 
     def allocate_node_id(self) -> int:
         nid = self._node_ids

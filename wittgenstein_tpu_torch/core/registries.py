@@ -1,75 +1,40 @@
-"""Name-keyed lookup of the ported node builders and latency models.
+"""Name-keyed registries for latency models, node builders and the
+batched protocols.
 
-Reference semantics: core RegistryNodeBuilders.java and
-RegistryNetworkLatencies.java.  The port registers the defaults
-(`node_builder_name=None`, `network_latency_name=None`), the AWS builder
-`builder_name("AWS", True, 0.0)`, the all-cities builder
-`builder_name("CITIES", True, 0.0)` (ETHPoW's miner environment), the `AwsRegionNetworkLatency`,
-`IC3NetworkLatency` and `NetworkNoLatency` models, and the fixed and
-uniform models the JAX package pre-registers (`name(FIXED, f)` and
-`name(UNIFORM, f)` for f in 0..8000); any other name raises, so a
-configuration the port cannot yet reproduce fails loudly instead of
-running another model.
+Reference semantics: core RegistryNetworkLatencies.java (FIXED/UNIFORM
+pre-registered at 0..8000, then the model classes by name) and
+RegistryNodeBuilders.java (the 54-entry {AWS, CITIES, RANDOM} x
+{CONSTANT, GAUSSIAN speed} x tor-ratio cross product), as the JAX
+package keeps them, with its registry of batched protocols: one small
+factory a protocol, each returning `(net, state)` on the device it is
+given (None = CUDA).  Unknown names raise ValueError.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from . import latency as L
 from .geo import GeoAllCities, GeoAWS, latency_cities
-from .latency import (
-    AwsRegionNetworkLatency,
-    IC3NetworkLatency,
-    NetworkFixedLatency,
-    NetworkLatency,
-    NetworkLatencyByDistanceWJitter,
-    NetworkNoLatency,
-    NetworkUniformLatency,
+from .node import (
+    ExtraLatencyAspect,
+    NodeBuilder,
+    NodeBuilderWithCity,
+    NodeBuilderWithRandomPosition,
+    SpeedRatioAspect,
+    UniformSpeed,
 )
-from .node import NodeBuilder, NodeBuilderWithCity, NodeBuilderWithRandomPosition
 
-AWS = "AWS"
-CITIES = "CITIES"
-RANDOM = "RANDOM"
-DEFAULT_LATENCY = "NetworkLatencyByDistanceWJitter"
-LATENCY_CLASSES = {
-    DEFAULT_LATENCY: NetworkLatencyByDistanceWJitter,
-    "AwsRegionNetworkLatency": AwsRegionNetworkLatency,
-    "IC3NetworkLatency": IC3NetworkLatency,
-    "NetworkNoLatency": NetworkNoLatency,
+_LATENCY_CLASSES = {
+    "NetworkLatencyByDistanceWJitter": L.NetworkLatencyByDistanceWJitter,
+    "AwsRegionNetworkLatency": L.AwsRegionNetworkLatency,
+    "NetworkLatencyByCity": L.NetworkLatencyByCity,
+    "NetworkLatencyByCityWJitter": L.NetworkLatencyByCityWJitter,
+    "NetworkNoLatency": L.NetworkNoLatency,
+    "EthScanNetworkLatency": L.EthScanNetworkLatency,
+    "IC3NetworkLatency": L.IC3NetworkLatency,
 }
-
-
-def builder_name(location: str, speed_constant: bool, tor: float) -> str:
-    """Exact name format of RegistryNodeBuilders.name (the non-constant
-    speed model is named GAUSSIAN, the reference's quirk at
-    RegistryNodeBuilders.java:24-27)."""
-    speed = "CONSTANT" if speed_constant else "GAUSSIAN"
-    tor_s = (repr(float(tor)) + "000")[:4]
-    return f"{location}_speed={speed}_tor={tor_s}".upper()
-
-
-DEFAULT_BUILDER = builder_name(RANDOM, True, 0.0)
-AWS_BUILDER = builder_name(AWS, True, 0.0)
-CITIES_BUILDER = builder_name(CITIES, True, 0.0)
-
-
-class RegistryNodeBuilders:
-    def get_by_name(self, name: Optional[str]) -> NodeBuilder:
-        """A fresh builder (node ids from 0) for a ported name."""
-        if name is None or not name.strip():
-            name = DEFAULT_BUILDER
-        if name == DEFAULT_BUILDER:
-            return NodeBuilderWithRandomPosition()
-        if name == AWS_BUILDER:
-            return NodeBuilderWithCity(AwsRegionNetworkLatency.cities(), GeoAWS())
-        if name == CITIES_BUILDER:
-            # core/registries.py:128-131 of the JAX package
-            return NodeBuilderWithCity(latency_cities(), GeoAllCities())
-        raise NotImplementedError(
-            f"node builder {name!r} is not ported; only {DEFAULT_BUILDER}, {AWS_BUILDER} "
-            f"and {CITIES_BUILDER}"
-        )
 
 
 class RegistryNetworkLatencies:
@@ -77,6 +42,12 @@ class RegistryNetworkLatencies:
     UNIFORM = "UNIFORM"
     # the values RegistryNetworkLatencies.java pre-registers for both
     PRESET = (0, 100, 200, 500, 1000, 2000, 4000, 8000)
+
+    def __init__(self):
+        self._registry: Dict[str, L.NetworkLatency] = {}
+        for f in self.PRESET:
+            self._registry[self.name(self.FIXED, f)] = L.NetworkFixedLatency(f)
+            self._registry[self.name(self.UNIFORM, f)] = L.NetworkUniformLatency(f)
 
     @staticmethod
     def name(type_: str, fixed: int) -> str:
@@ -86,22 +57,331 @@ class RegistryNetworkLatencies:
             return f"NetworkUniformLatency({fixed})"
         raise ValueError(type_)
 
-    def get_by_name(self, name: Optional[str]) -> NetworkLatency:
+    def get_by_name(self, name: Optional[str]) -> L.NetworkLatency:
         if name is None:
-            name = DEFAULT_LATENCY
-        for f in self.PRESET:
-            if name == self.name(self.FIXED, f):
-                return NetworkFixedLatency(f)
-            if name == self.name(self.UNIFORM, f):
-                return NetworkUniformLatency(f)
-        cls = LATENCY_CLASSES.get(name)
+            name = "NetworkLatencyByDistanceWJitter"
+        nl = self._registry.get(name)
+        if nl is not None:
+            return nl
+        cls = _LATENCY_CLASSES.get(name)
         if cls is None:
-            raise NotImplementedError(
-                f"latency model {name!r} is not ported; only {sorted(LATENCY_CLASSES)} "
-                f"and the fixed and uniform models at {self.PRESET}"
-            )
+            raise ValueError(f"unknown latency model {name!r}")
         return cls()
 
 
-registry_node_builders = RegistryNodeBuilders()
 registry_network_latencies = RegistryNetworkLatencies()
+
+AWS = "AWS"
+CITIES = "CITIES"
+RANDOM = "RANDOM"
+
+TOR_RATIOS = (0.0, 0.01, 0.10, 0.20, 0.33, 0.5, 0.6, 0.8, 1.0)
+LOCATIONS = (AWS, CITIES, RANDOM)
+
+
+def builder_name(location: str, speed_constant: bool, tor: float) -> str:
+    """Exact name format of RegistryNodeBuilders.name (the non-constant
+    speed model is UniformSpeed but the name says GAUSSIAN, the
+    reference's quirk at RegistryNodeBuilders.java:24-27)."""
+    speed = "CONSTANT" if speed_constant else "GAUSSIAN"
+    tor_s = (repr(float(tor)) + "000")[:4]
+    return f"{location}_speed={speed}_tor={tor_s}".upper()
+
+
+class RegistryNodeBuilders:
+    def __init__(self):
+        self._specs = {
+            builder_name(loc, speed_constant, tor): (loc, speed_constant, tor)
+            for loc in LOCATIONS for speed_constant in (True, False) for tor in TOR_RATIOS
+        }
+        self._cache: Dict[str, NodeBuilder] = {}
+
+    def names(self) -> List[str]:
+        return list(self._specs)
+
+    def get_by_name(self, name: Optional[str]) -> NodeBuilder:
+        """A fresh copy (node ids from 0) of the registered builder."""
+        if name is None or not name.strip():
+            name = builder_name(RANDOM, True, 0.0)
+        if name not in self._specs:
+            raise ValueError(f"{name} not in the registry")
+        if name not in self._cache:
+            self._cache[name] = self._build(*self._specs[name])
+        return self._cache[name].copy()
+
+    @staticmethod
+    def _build(loc: str, speed_constant: bool, tor: float) -> NodeBuilder:
+        if loc == AWS:
+            nb = NodeBuilderWithCity(L.AwsRegionNetworkLatency.cities(), GeoAWS())
+        elif loc == CITIES:
+            # the ping matrix's cities (CSVLatencyReader().cities())
+            nb = NodeBuilderWithCity(latency_cities(), GeoAllCities())
+        else:
+            nb = NodeBuilderWithRandomPosition()
+        if not speed_constant:
+            nb.aspects.append(SpeedRatioAspect(UniformSpeed()))
+        if tor > 0.001:
+            nb.aspects.append(ExtraLatencyAspect(tor))
+        return nb
+
+
+registry_node_builders = RegistryNodeBuilders()
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchedProtocolEntry:
+    """One registered batched protocol: its registry key, its module under
+    `protocols/`, a factory `(device=None) -> (net, state)` at a small
+    scale, and whether it runs on the generic engine (`contract_checks`;
+    `note` says why not)."""
+
+    name: str
+    module: str
+    factory: Callable[..., Tuple[Any, Any]]
+    contract_checks: bool = True
+    note: str = ""
+
+
+class RegistryBatchedProtocols:
+    def __init__(self):
+        self._entries: Dict[str, BatchedProtocolEntry] = {}
+
+    def register(self, entry: BatchedProtocolEntry) -> None:
+        if entry.name in self._entries:
+            raise ValueError(f"duplicate batched protocol {entry.name!r}")
+        self._entries[entry.name] = entry
+
+    def names(self) -> List[str]:
+        return sorted(self._entries)
+
+    def get(self, name: str) -> BatchedProtocolEntry:
+        return self._entries[name]
+
+    def entries(self) -> List[BatchedProtocolEntry]:
+        return [self._entries[n] for n in self.names()]
+
+    def modules(self) -> List[str]:
+        return sorted({e.module for e in self._entries.values()})
+
+
+registry_batched_protocols = RegistryBatchedProtocols()
+
+
+def _reg(name, module, factory, **kw):
+    registry_batched_protocols.register(BatchedProtocolEntry(name, module, factory, **kw))
+
+
+# the factories import their protocol when called, so this module stays
+# free of protocol -> core -> protocol cycles
+
+
+def _make_pingpong_small(device=None):
+    from ..protocols.pingpong_batched import make_pingpong
+
+    return make_pingpong(64, device=device)
+
+
+def _make_p2pflood_small(device=None):
+    from ..protocols.p2pflood import P2PFloodParameters
+    from ..protocols.p2pflood_batched import make_p2pflood
+
+    return make_p2pflood(P2PFloodParameters(), capacity=2048, device=device)
+
+
+def _make_p2pflood_faults_small(device=None):
+    # the p2pflood entry with the fault side-car armed on a non-neutral
+    # schedule
+    from ..faults import FaultConfig, FaultPlan
+
+    net, state = _make_p2pflood_small(device)
+    plan = (
+        FaultPlan("contract")
+        .crash(range(20, 30), at=200, recover=900)
+        .drop(100, start=100)
+        .inflate(1500, add_ms=5, start=100, end=800)
+    )
+    return net.with_faults(state, FaultConfig(), plan)
+
+
+def _make_paxos_small(device=None):
+    from ..protocols.paxos import PaxosParameters
+    from ..protocols.paxos_batched import make_paxos
+
+    return make_paxos(PaxosParameters(), device=device)
+
+
+def _make_slush_small(device=None):
+    from ..protocols.avalanche_batched import make_slush
+
+    return make_slush(device=device)
+
+
+def _make_snowflake_small(device=None):
+    from ..protocols.avalanche_batched import make_snowflake
+
+    return make_snowflake(device=device)
+
+
+def _make_handel_small(device=None):
+    from ..protocols.handel import HandelParameters
+    from ..protocols.handel_batched import make_handel
+
+    return make_handel(
+        HandelParameters(
+            node_count=64,
+            threshold=int(64 * 0.99),
+            pairing_time=3,
+            level_wait_time=50,
+            extra_cycle=10,
+            dissemination_period_ms=10,
+            fast_path=10,
+            nodes_down=0,
+        ),
+        score_cache=True,  # pinned on, as the JAX package's entry
+        device=device,
+    )
+
+
+def _make_gsf_small(device=None):
+    from ..protocols.gsf import GSFSignatureParameters
+    from ..protocols.gsf_batched import make_gsf
+
+    return make_gsf(
+        GSFSignatureParameters(
+            node_count=64,
+            threshold=int(64 * 0.99),
+            pairing_time=3,
+            timeout_per_level_ms=50,
+            period_duration_ms=10,
+            accelerated_calls_count=10,
+            nodes_down=0,
+        ),
+        device=device,
+    )
+
+
+def _make_handeleth2_small(device=None):
+    from ..protocols.handeleth2 import HandelEth2Parameters
+    from ..protocols.handeleth2_batched import make_handeleth2
+
+    return make_handeleth2(
+        HandelEth2Parameters(
+            node_count=32, pairing_time=3, level_wait_time=100, period_duration_ms=50,
+            nodes_down=0,
+        ),
+        device=device,
+    )
+
+
+def _make_optimistic_small(device=None):
+    from ..protocols.optimistic_p2p_signature import OptimisticP2PSignatureParameters
+    from ..protocols.optimistic_p2p_signature_batched import make_optimistic
+
+    return make_optimistic(
+        OptimisticP2PSignatureParameters(
+            node_count=64, threshold=56, connection_count=10, pairing_time=3
+        ),
+        device=device,
+    )
+
+
+def _make_p2phandel_small(device=None):
+    from ..protocols.p2phandel import P2PHandelParameters
+    from ..protocols.p2phandel_batched import make_p2phandel
+
+    return make_p2phandel(P2PHandelParameters(), score_cache=True, device=device)
+
+
+def _make_sanfermin_small(device=None):
+    from ..protocols.sanfermin import SanFerminSignatureParameters
+    from ..protocols.sanfermin_batched import make_sanfermin
+
+    return make_sanfermin(
+        SanFerminSignatureParameters(
+            node_count=64, threshold=64, pairing_time=2, signature_size=48,
+            reply_timeout=300, candidate_count=1, shuffled_lists=False,
+        ),
+        device=device,
+    )
+
+
+def _make_sanfermin_cappos_small(device=None):
+    from ..protocols.sanfermin_cappos import SanFerminParameters
+    from ..protocols.sanfermin_cappos_batched import make_sanfermin_cappos
+
+    return make_sanfermin_cappos(
+        SanFerminParameters(
+            node_count=64, threshold=32, pairing_time=2, signature_size=48, timeout=150,
+            candidate_count=4,
+        ),
+        device=device,
+    )
+
+
+def _make_dfinity_small(device=None):
+    from ..protocols.dfinity import DfinityParameters
+    from ..protocols.dfinity_batched import make_dfinity
+
+    return make_dfinity(DfinityParameters(), max_heights=64, device=device)
+
+
+def _make_casper_small(device=None):
+    from ..protocols.casper import CasperParameters
+    from ..protocols.casper_batched import make_casper
+
+    return make_casper(CasperParameters(), max_heights=16, device=device)
+
+
+def _make_enr_small(device=None):
+    from ..protocols.enr_batched import make_enr
+    from ..protocols.enr_gossiping import ENRParameters
+
+    return make_enr(
+        ENRParameters(
+            nodes=24, total_peers=4, max_peers=10, number_of_different_capabilities=5,
+            cap_per_node=2, cap_gossip_time=5_000, time_to_leave=50_000,
+            time_to_change=10_000_000, changing_nodes=1, discard_time=100,
+        ),
+        horizon_ms=30_000,
+        capacity=1024,
+        device=device,
+    )
+
+
+def _make_ethpow_small(device=None):
+    raise NotImplementedError(
+        "ethpow_batched is a standalone mining engine (EthPowState), not a "
+        "BatchedProtocol on the generic message store"
+    )
+
+
+_reg("pingpong", "pingpong_batched", _make_pingpong_small)
+_reg("p2pflood", "p2pflood_batched", _make_p2pflood_small)
+_reg(
+    "p2pflood_faults",
+    "p2pflood_batched",
+    _make_p2pflood_faults_small,
+    note="fault-injection lane (wittgenstein_tpu.faults) traced on the "
+    "p2pflood kernels; exercises SL406/SL407 on a non-neutral schedule",
+)
+_reg("paxos", "paxos_batched", _make_paxos_small)
+_reg("slush", "avalanche_batched", _make_slush_small)
+_reg("snowflake", "avalanche_batched", _make_snowflake_small)
+_reg("handel", "handel_batched", _make_handel_small)
+_reg("gsf", "gsf_batched", _make_gsf_small)
+_reg("handeleth2", "handeleth2_batched", _make_handeleth2_small)
+_reg("optimistic", "optimistic_p2p_signature_batched", _make_optimistic_small)
+_reg("p2phandel", "p2phandel_batched", _make_p2phandel_small)
+_reg("sanfermin", "sanfermin_batched", _make_sanfermin_small)
+_reg("sanfermin_cappos", "sanfermin_cappos_batched", _make_sanfermin_cappos_small)
+_reg("dfinity", "dfinity_batched", _make_dfinity_small)
+_reg("casper", "casper_batched", _make_casper_small)
+_reg("enr", "enr_batched", _make_enr_small)
+_reg(
+    "ethpow",
+    "ethpow_batched",
+    _make_ethpow_small,
+    contract_checks=False,
+    note="standalone chain-mining engine (EthPowState pytree, no generic "
+    "message store); covered by tests/test_ethpow_batched.py instead",
+)

@@ -13,9 +13,9 @@ Handel's channel commits included.
 Reward is the ATTACKER's objective: the fraction of statically-live nodes
 whose aggregation is still incomplete.
 
-With `net=None, state=None` the environment builds the JAX package's
-registry default — Handel at 64 nodes at the flagship parameters with the
-score cache on (its `registry_batched_protocols.get("handel").factory()`).
+With `net=None, state=None` the environment builds the registry default,
+`registry_batched_protocols.get("handel").factory()`: Handel at 64 nodes
+at the flagship parameters with the score cache on, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -27,11 +27,7 @@ import torch
 
 from ..engine.core import replicate_state
 from ..faults.state import INT_MAX, FaultConfig
-from .handel import flagship_params
-from .handel_batched import make_handel
 
-# the JAX package's registry default for "handel" (core/registries.py:262-281)
-DEFAULT_NODES = 64
 BYZANTINE_ONLY = FaultConfig(crashes=False, partitions=False, drops=False, delays=False)
 
 
@@ -52,8 +48,9 @@ class BatchedAttackEnv:
         if (net is None) != (state is None):
             raise ValueError("pass both of (net, state) or neither")
         if net is None:
-            net, state = make_handel(flagship_params(DEFAULT_NODES), score_cache=True,
-                                     device=device)
+            from ..core.registries import registry_batched_protocols
+
+            net, state = registry_batched_protocols.get("handel").factory(device=device)
         if decision_ms <= 0:
             raise ValueError(f"decision_ms={decision_ms} must be positive")
         if horizon_ms % decision_ms != 0:
