@@ -39,7 +39,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 popcount_words on the packed [R, 16] words
   4. identity   the port on the CPU (plain versions) and on CUDA
                 (kernels), each side in worker processes (three on the
-                CPU, five on the card, all at once), give identical
+                CPU, six on the card, all at once), give identical
                 state in every leaf: batched Handel at 64
                 nodes x 2 replicas x 300 ms, flagship-shaped and with
                 byzantine_suicide; PingPong at 64 nodes x 2 x 300 ms;
@@ -71,7 +71,16 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 Tor, the city matrix with jitter) and the tor battery's
                 0.5 point at 32 nodes, each x 2 x 400 ms; run_fault_sweep
                 over PingPong at 64 nodes with a duplicated plan, its out
-                state and records
+                state and records; a 2-generation ES search campaign on
+                the registry's 64-node Handel (200 ms, population 4), its
+                report as JSON (less wall seconds and counters), with no
+                kernel library built or loaded after its first
+                generation; flagship_params(64) Handel x 2 saved at tick
+                100 through a CheckpointManager, loaded and run 100 more
+                ticks (equal to the uninterrupted run on each side); and
+                optimize_env_policy on BatchedAttackEnv(n_replicas=4,
+                decision_ms=200, horizon_ms=600), 2 generations: best_vec
+                and best_score
   5. flagship   the Handel main path: make_handel(flagship_params(4096)),
                 replicate_state(R=16), run_ms_batched in 20-ms chunks up to
                 1000 ms with stop_when_done; every live node must finish and
@@ -111,7 +120,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 its rows have in the whole list) in a worker process,
                 all at once, with the cities run.  Every group's ticks,
                 ms a tick, launches and peak memory; sweep_profile is
-                ticks 100-109 of the 20% group.  Every live node of every
+                ticks 100-109 of the 10% group.  Every live node of every
                 row done but where the JAX package leaves nodes undone
                 at the same seeds (SWEEP_UNDONE), nothing dropped, the
                 25% point's done_at_avg above the 0% point's, the
@@ -119,7 +128,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 launched, and row 0 of each point equal to the JAX
                 package's at its group's stop tick (SWEEP_R0); one CSV
                 row a point.  Then lowest_set_bit and
-                lowest_set_bit_andnot are timed on the 20% group's own
+                lowest_set_bit_andnot are timed on the 10% group's own
                 eligibility rows (byz, bl) at tick 100, every width bucket
   7b. cities    log_start_time_configs(4096, dead=0.2, tor=0.2)[2] (the
                 allScenarios "111" corner at levelWaitTime 50: the CITIES
@@ -127,6 +136,28 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 jitter, a 100-ms desynchronized start) through run_sweep,
                 R = 4, 300 ms: nothing dropped, the popcount family
                 launched, row 0 equal to the JAX package's (CITIES_R0)
+  7c. search    two tasks queued after the sweep's groups and the cities
+                run in the same pool of seven processes, so they take the
+                slots the 0% group and the cities run free: (a) the JAX
+                package's reference p2pflood campaign (SEARCH_CAMPAIGN:
+                P2PFlood at the reference's 100 nodes, 1000 ms, ES,
+                population 6, 3 generations, seed 0) through
+                SearchDriver on CUDA, interrupted: a first driver runs
+                generation 0 into a checkpoint directory and is dropped,
+                a second resumes at generation 1 and runs to 3; the config
+                digest, the champion (score, plan digest, seed0, found at
+                generation 0) and the best score of each generation must
+                be the JAX package's, no kernel library may be built or
+                loaded after the first generation, and the pin
+                p2pflood_es_s0.json replays through verify_regression to
+                its exact score with the static baselines re-scored to
+                exactly the pinned ones; each generation's eval seconds,
+                loop iterations, ms an iteration and launches, and evals/s
+                over the campaign; (b) the pin handel_es_s0.json (the
+                registry's 64-node Handel, 1500 ms) replayed the same way
+                to 3000.0 and its pinned baselines, popcount_words,
+                popcount_binop and cand_score launched, ms and launches a
+                tick
   8. pingpong   the event-driven main path: make_pingpong(1000), R=4096,
                 run_ms_batched(700, stop_when_done) on the time wheel and
                 the consensus-jump loop; every witness must count 1000
@@ -297,6 +328,7 @@ import multiprocessing
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from typing import NamedTuple
 
@@ -305,6 +337,7 @@ import torch
 
 from wittgenstein_tpu_torch.core.registries import builder_name
 from wittgenstein_tpu_torch.engine import BatchedNetwork, map_state, replicate_state
+from wittgenstein_tpu_torch.engine.checkpoint import CheckpointManager
 from wittgenstein_tpu_torch.faults import FaultConfig, FaultPlan, lower_plans
 from wittgenstein_tpu_torch.interop import state_to_numpy
 from wittgenstein_tpu_torch.ops import bitops, kernels
@@ -357,6 +390,13 @@ from wittgenstein_tpu_torch.scenarios.sweep import (
     run_fault_sweep,
     run_sweep,
 )
+from wittgenstein_tpu_torch.obs.recorder import FlightRecorder
+from wittgenstein_tpu_torch.scenarios.regressions import (
+    REGRESSIONS_DIR,
+    load_regression,
+    verify_regression,
+)
+from wittgenstein_tpu_torch.search import SearchConfig, SearchDriver, optimize_env_policy
 from wittgenstein_tpu_torch.telemetry import TelemetryConfig
 from wittgenstein_tpu_torch.tools.csv_formatter import CSVFormatter
 
@@ -373,9 +413,10 @@ SWEEP_REPLICAS = 4
 # that group runs to the horizon (3000 ms: 465 s on an H100 80GB HBM3 at
 # 700 W, past the script's budget)
 SWEEP_MS = 1400
-# the 20% group carries the profile window: its processing (~12 s) would
-# lengthen the phase in one of the three longest groups (5, 10, 25%)
-SWEEP_PROFILE_POINT = 4
+# the 10% group, the shortest Byzantine one, carries the profile window:
+# its processing (~34 s on an H100 80GB HBM3 at 700 W) made the 20% group
+# the phase's longest, and adds least to the 10% group's 1140 ticks
+SWEEP_PROFILE_POINT = 2
 CITIES_MS = 300
 # row 0 of each point at its group's stop tick (the tick after its last
 # row's completion, or SWEEP_MS), and the cities run's row 0 at CITIES_MS:
@@ -404,6 +445,16 @@ CITIES_R0 = {"done": 0, "msg_received": 137280, "msg_filtered": 0, "sigs_checked
 # live nodes each row leaves undone at SWEEP_MS, where not all are done:
 # the JAX package's rows at the same seeds (1000-1003) leave the same
 SWEEP_UNDONE = {0.05: [0, 0, 1, 0]}
+SWEEP_POOL = 7  # worker processes of the sweep phase: six groups and the cities run
+# the search phase: the JAX package's reference p2pflood campaign (its
+# pin's provenance) and its two pinned champions, replayed exactly
+SEARCH_CAMPAIGN = dict(protocol="p2pflood", objective="done_at", sim_ms=1000, generations=3,
+                       population=6, seed=0, optimizer="es", label="p2pflood-es-s0")
+SEARCH_DIGEST = "4c86b918f531f2ff"
+SEARCH_CHAMPION = {"score": 1559.1, "plan_digest": "3f97e845d9ee79b96452813100a8a389",
+                   "seed0": 6, "generation": 0}
+SEARCH_GEN_SCORES = [1559.1, 1478.2, 1559.1]
+SEARCH_PINS = {"p2pflood": "p2pflood_es_s0.json", "handel": "handel_es_s0.json"}
 CHUNK_MS = 20
 SIM_MS = 1000
 PP_NODES = 1000
@@ -1429,9 +1480,69 @@ def _fault_sweep_case(dev):
     return leaves
 
 
+def _library_loads() -> int:
+    """nvcc builds and library loads this process has made."""
+    return sum(lib.builds + lib.loads for lib in kernels.LIBRARIES)
+
+
+def _search_case(dev):
+    """A 2-generation ES campaign on the registry's 64-node Handel, 200 ms,
+    population 4: its report (less the wall seconds and the per-process
+    counters) as JSON bytes.  No library is built or loaded after the
+    first generation: a leaf both sides give as True, and on the card a
+    failure here."""
+    driver = SearchDriver(SearchConfig(protocol="handel", sim_ms=200, generations=2,
+                                       population=4, seed=0, optimizer="es",
+                                       label="handel-es-identity"),
+                          recorder=FlightRecorder(), device=dev)
+    driver.run_generation()
+    loads = _library_loads()
+    report = driver.run()
+    if _library_loads() != loads:
+        raise AssertionError("search identity: a kernel library was built or loaded after "
+                             "the first generation")
+    report.pop("metrics")
+    for row in report["history"]:
+        row.pop("eval_s")
+    return {"report": np.frombuffer(json.dumps(report, sort_keys=True).encode(), np.uint8),
+            "no_load_after_first_generation": np.array([True])}
+
+
+def _checkpoint_case(dev):
+    """flagship_params(64) Handel x 2 saved at tick 100 through a
+    CheckpointManager, loaded and run 100 more ticks: the resumed state,
+    which must equal the uninterrupted 200-tick run on the same device."""
+    net, state = make_handel(flagship_params(64), score_cache=True, device=dev)
+    s0 = replicate_state(state, 2)
+    s100 = net.run_ms_batched(s0, 100)
+    straight = state_to_numpy(net.run_ms_batched(s100, 100))
+    with tempfile.TemporaryDirectory() as ck:
+        mgr = CheckpointManager(ck)
+        mgr.save(s100, 100)
+        loaded, step, _ = mgr.restore_latest(s0)
+    if step != 100 or loaded.done_at.device.type != torch.device(dev).type:
+        raise AssertionError(f"checkpoint identity: restored step {step} on "
+                             f"{loaded.done_at.device}")
+    resumed = state_to_numpy(net.run_ms_batched(loaded, 100))
+    bad = _leaf_diff(straight, resumed)
+    if bad:
+        raise AssertionError(f"checkpoint identity on {dev}: resumed run differs in {bad[:10]}")
+    return resumed
+
+
+def _env_policy_case(dev):
+    """optimize_env_policy on BatchedAttackEnv(n_replicas=4, decision_ms=200,
+    horizon_ms=600, seed=0), 2 generations: best_vec and best_score."""
+    env = BatchedAttackEnv(n_replicas=4, decision_ms=200, horizon_ms=600, seed=0, device=dev)
+    opt = optimize_env_policy(env, generations=2, seed=0, recorder=FlightRecorder())
+    return {"best_vec": opt.best_vec, "best_score": np.array([opt.best_score])}
+
+
 IDENTITY_AGENT = dict(byz_class_name="ETHMinerAgent", byz_mining_ratio=0.45)
 # cases that run their own way: case -> (run on a device -> numpy leaves, ms)
 IDENTITY_RUNS = {
+    "env_policy": (_env_policy_case, 600),
+    "search_handel": (_search_case, 200),
     "ethpow_honest": (_ethpow_case("honest"), 600_000),
     "ethpow_selfish": (_ethpow_case("selfish"), 600_000),
     "ethpow_selfish2": (_ethpow_case("selfish2"), 600_000),
@@ -1448,6 +1559,7 @@ IDENTITY_RUNS = {
         lambda dev: make_pingpong(64, telemetry=TELE_CFG, device=dev), all_lanes_plan(64),
         300, 300), 300),
     "fault_sweep_pingpong": (_fault_sweep_case, 300),
+    "checkpoint_handel": (_checkpoint_case, 200),
     "handel_tele_clocks_0_7": (_tele_case(lambda dev: make_handel(
         flagship_params(64), score_cache=True, telemetry=TELE_CFG, device=dev),
         100, 100, clocks=(0, 7)), 100),
@@ -1479,16 +1591,16 @@ def _one_thread() -> None:
 def identity() -> None:
     """Each IDENTITY case gives identical state in every leaf on the CPU
     (plain versions) and on CUDA (kernels).  Both sides of every case run
-    in worker processes, three on the CPU and five on the card, all
+    in worker processes, three on the CPU and six on the card, all
     started together (each side's host loop holds one core; the card
-    serves the five in turn, and a case's CUDA side takes about twice its
+    serves the six in turn, and a case's CUDA side takes about twice its
     CPU side); every worker is joined or terminated when the phase ends.
     `ready_s` is when both sides of a case were in, `cpu_s` and `cuda_s`
     each side's own seconds."""
     ctx = multiprocessing.get_context("spawn")
     t0 = time.perf_counter()
     with ctx.Pool(3, initializer=_one_thread) as cpu_pool, \
-            ctx.Pool(5, initializer=_one_thread) as cuda_pool:
+            ctx.Pool(6, initializer=_one_thread) as cuda_pool:
         # the cases that run their own way after the eleven longest
         cases = list(IDENTITY)[:11] + list(IDENTITY_RUNS) + list(IDENTITY)[11:]
         cpu = {case: cpu_pool.apply_async(identity_state, (case, "cpu")) for case in cases}
@@ -1851,19 +1963,143 @@ def sweep_point(task: tuple) -> dict:
             "sweep_launches": {k.name: k.launches for k in kernels.KERNELS}, **call}
 
 
-def sweeps(points: bool, cities: bool) -> dict:
-    """The `sweep` and `cities` phases in one pool of worker processes, all
-    started together: each group of BASELINE config 3's sweep (one per
+@contextlib.contextmanager
+def _run_probe():
+    """Record every BatchedNetwork.run_ms_batched call while the search
+    drives run_fault_sweep: its replicas, ms, wall seconds, loop
+    iterations (the event-driven loop's count, else one a tick), ms an
+    iteration and launches of every form."""
+    orig = BatchedNetwork.run_ms_batched
+    calls = []
+
+    def run(net, states, ms, stop_when_done=False):
+        before = {k.name: k.launches for k in kernels.KERNELS}
+        net.jump_stats = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(net, states, ms, stop_when_done)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        its = net.jump_stats["iterations"] if net.jump_stats else ms
+        calls.append({"replicas": int(states.done_at.shape[0]), "ms": ms, "wall_s": wall,
+                      "iterations": its, "ms_per_iteration": wall / its * 1e3,
+                      "launches": {k.name: k.launches - before[k.name] for k in kernels.KERNELS}})
+        return out
+
+    BatchedNetwork.run_ms_batched = run
+    try:
+        yield calls
+    finally:
+        BatchedNetwork.run_ms_batched = orig
+
+
+def _replay_pin(name: str, tag: str) -> dict:
+    """verify_regression of a checked-in pin on CUDA: the exact pinned
+    score, and the re-scored static baselines equal to the pinned ones."""
+    doc = load_regression(REGRESSIONS_DIR / SEARCH_PINS[name])
+    t0 = time.perf_counter()
+    with _run_probe() as calls:
+        out = verify_regression(doc)
+    wall = time.perf_counter() - t0
+    if out["objective_value"] != doc["objective_value"]:
+        raise AssertionError(f"{tag}: replayed {out['objective_value']}, pinned "
+                             f"{doc['objective_value']}")
+    if out["baseline_scores"] != doc["baseline"]["scores"]:
+        raise AssertionError(f"{tag}: baselines {out['baseline_scores']}, pinned "
+                             f"{doc['baseline']['scores']}")
+    launches = {k.name: sum(c["launches"][k.name] for c in calls) for k in kernels.KERNELS}
+    ticks = sum(c["iterations"] for c in calls)
+    return {"phase": tag, "protocol": doc["protocol"], "sim_ms": doc["sim_ms"],
+            "objective_value": out["objective_value"], "plan_digest": out["plan_digest"],
+            "baseline_scores": out["baseline_scores"], "wall_s": wall, "runs": calls,
+            "iterations": ticks,
+            "ms_per_iteration": sum(c["wall_s"] for c in calls) / ticks * 1e3,
+            "launches": launches,
+            "launches_per_iteration": {k: v / ticks for k, v in launches.items()}}
+
+
+@torch.inference_mode()
+def search_campaign() -> dict:
+    """The JAX package's reference p2pflood campaign (SEARCH_CAMPAIGN) on
+    CUDA, interrupted: driver 1 runs generation 0 and is dropped, driver
+    2 resumes from the same checkpoint directory at generation 1 and runs
+    to 3.  Its config digest, champion and best score a generation must
+    be the JAX package's (SEARCH_DIGEST, SEARCH_CHAMPION,
+    SEARCH_GEN_SCORES), no kernel library may be built or loaded after
+    the first generation, and the pin replays exactly."""
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as ck, _run_probe() as calls:
+        cfg = SearchConfig(**SEARCH_CAMPAIGN, checkpoint_dir=ck)
+        first = SearchDriver(cfg, recorder=FlightRecorder())
+        first.run_generation()
+        loads = _library_loads()
+        del first
+        rec = FlightRecorder()
+        driver = SearchDriver(cfg, recorder=rec)
+        resumed_at = driver.generation
+        report = driver.run()
+        loads_after = _library_loads()
+    wall = time.perf_counter() - t0
+    champ = report["champion"]
+    gens = []
+    for row, call in zip(report["history"], calls):
+        gens.append({"gen": row["gen"], "eval_s": row["eval_s"], "evals": row["evals"],
+                     "replicas": call["replicas"], "iterations": call["iterations"],
+                     "ms_per_iteration": call["ms_per_iteration"],
+                     "launches": call["launches"], "best_gen_score": row["best_gen_score"],
+                     "champion_score": row["champion_score"]})
+    eval_s = sum(row["eval_s"] for row in report["history"])
+    evals = sum(row["evals"] * row["replicas_per_plan"] for row in report["history"])
+    out = {"phase": "search_campaign", **SEARCH_CAMPAIGN, "wall_s": wall,
+           "resumed_at": resumed_at, "config_digest": report["config_digest"],
+           "champion": {k: champ[k] for k in ("score", "plan_digest", "seed0", "generation",
+                                              "availability", "vec")},
+           "generations": gens, "evals": evals, "eval_s": eval_s, "evals_per_s": evals / eval_s,
+           "frontier": report["frontier"],
+           "events": [e["kind"] for e in rec.events()],
+           "library_loads_after_first_generation": loads_after - loads,
+           "launches": {k.name: sum(g["launches"][k.name] for g in gens)
+                        for k in kernels.KERNELS}}
+    out["replay"] = _replay_pin("p2pflood", "search_replay_p2pflood")
+    return out
+
+
+@torch.inference_mode()
+def search_handel_replay() -> dict:
+    """The JAX package's Handel pin replayed on CUDA: score 3000.0, the
+    pinned baselines, the popcount family launched."""
+    kernels.reset_launch_counts()
+    return _replay_pin("handel", "search_replay_handel")
+
+
+def pool_task(task: tuple) -> dict:
+    """One task of the sweep phase's pool: a sweep group, the cities run,
+    or one of the search phase's two tasks."""
+    if task[0] == "search":
+        _one_thread()
+        return {"what": "search", "task": task[1],
+                **(search_campaign() if task[1] == "campaign" else search_handel_replay())}
+    return sweep_point(task)
+
+
+def sweeps(points: bool, cities: bool, search: bool = False) -> dict:
+    """The `sweep`, `cities` and `search` phases in one pool of SWEEP_POOL
+    worker processes: each group of BASELINE config 3's sweep (one per
     Byzantine fraction: a fraction changes the threshold, a traced
     parameter, so run_sweep runs six groups of SWEEP_REPLICAS rows) and
     the cities run hold one core each on the host, and the card serves
-    them in turn.  Every worker is joined or terminated when the phase
-    ends."""
+    them in turn; the search's two tasks (the reference campaign with its
+    pin's replay, and the Handel pin's replay) come last and take the
+    slots that the 0% group and the cities run free.  Every worker is
+    joined or terminated when the phase ends."""
     tasks = ([("sweep", i) for i in reversed(range(len(SWEEP_FRACTIONS)))] if points else [])
     tasks += [("cities", 0)] if cities else []
+    # the Handel replay, the longer task, takes the first slot that frees
+    tasks += [("search", "handel"), ("search", "campaign")] if search else []
     t0 = time.perf_counter()
-    with multiprocessing.get_context("spawn").Pool(len(tasks)) as pool:
-        outs = pool.map(sweep_point, tasks, chunksize=1)
+    with multiprocessing.get_context("spawn").Pool(min(SWEEP_POOL, len(tasks))) as pool:
+        outs = pool.map(pool_task, tasks, chunksize=1)
         pool.close()
         pool.join()
     elapsed = time.perf_counter() - t0
@@ -1872,7 +2108,47 @@ def sweeps(points: bool, cities: bool) -> dict:
         res["sweep"] = _sweep_checks([o for o in outs if o["what"] == "sweep"], elapsed)
     if cities:
         res["cities"] = _cities_checks([o for o in outs if o["what"] == "cities"][0])
+    if search:
+        res["search"] = _search_checks({o["task"]: o for o in outs if o["what"] == "search"})
     return res
+
+
+def _search_checks(outs: dict) -> dict:
+    camp, handel = outs["campaign"], outs["handel"]
+    replay = camp.pop("replay")
+    for row in (camp, replay, handel):
+        emit(row)
+    if camp["config_digest"] != SEARCH_DIGEST:
+        raise AssertionError(f"search: config digest {camp['config_digest']}, the JAX "
+                             f"package's {SEARCH_DIGEST}")
+    if camp["resumed_at"] != 1:
+        raise AssertionError(f"search: the second driver resumed at {camp['resumed_at']}")
+    got = {k: camp["champion"][k] for k in SEARCH_CHAMPION}
+    if got != SEARCH_CHAMPION:
+        raise AssertionError(f"search: champion {got}, the JAX package's {SEARCH_CHAMPION}")
+    scores = [g["best_gen_score"] for g in camp["generations"]]
+    if scores != SEARCH_GEN_SCORES:
+        raise AssertionError(f"search: best scores {scores}, the JAX package's "
+                             f"{SEARCH_GEN_SCORES}")
+    if camp["library_loads_after_first_generation"]:
+        raise AssertionError("search: a kernel library was built or loaded after the first "
+                             "generation")
+    want_events = ["search-resume"] + ["search-generation", "checkpoint"] * 2 + [
+        "search-complete"]
+    if camp["events"] != want_events:
+        raise AssertionError(f"search: the resumed driver recorded {camp['events']}")
+    for name in ("popcount_words", "popcount_binop", "cand_score"):
+        if handel["launches"][name] <= 0:
+            raise AssertionError(f"search: {name} kernel never launched on the Handel replay")
+    launches = {k: camp["launches"][k] + replay["launches"][k] + handel["launches"][k]
+                for k in handel["launches"]}
+    row = {"phase": "search", "launches": launches,
+           "campaign_s": camp["wall_s"], "campaign_evals_per_s": camp["evals_per_s"],
+           "handel_replay_s": handel["wall_s"],
+           "handel_ms_per_tick": handel["ms_per_iteration"],
+           "handel_launches_per_tick": handel["launches_per_iteration"]}
+    emit(row)
+    return row
 
 
 def _sweep_checks(outs: list, elapsed: float) -> dict:
@@ -3274,7 +3550,7 @@ def paxos() -> dict:
     return out
 
 
-PHASES = ("kernels", "identity", "flagship", "telemetry", "sweep", "cities", "pingpong",
+PHASES = ("kernels", "identity", "flagship", "telemetry", "sweep", "cities", "search", "pingpong",
           "faults_pingpong", "pingpong_tele", "dfinity", "gsf", "p2phandel", "handeleth2",
           "sanfermin", "casper", "paxos", "slush", "snowflake", "p2pflood", "optimistic",
           "cappos", "enr", "ethpow", "miner_env", "attack_env")
@@ -3321,10 +3597,10 @@ def main(argv) -> int:
         lap("telemetry")
     if flag is not None:
         del flag["_states"]
-    if want("sweep") or want("cities"):
-        runs.update(sweeps(want("sweep"), want("cities")))
+    if want("sweep") or want("cities") or want("search"):
+        runs.update(sweeps(want("sweep"), want("cities"), want("search")))
         if "sweep" in runs:
-            # the 25% group's eligibility rows at its window's first tick
+            # the profiled group's eligibility rows at its window's first tick
             real = [(a.cuda(), b.cuda()) for a, b in runs["sweep"].pop("_real")]
             lowest_rows, andnot_rows = lowest_bucket_times(real), andnot_bucket_times(real)
             emit({"phase": "byz_rows", "lowest_set_bit": lowest_rows,

@@ -209,8 +209,10 @@ def test_new_entry_points_default_to_cuda(monkeypatch):
 def test_port_data_is_its_own():
     """The CITIES builder reads the port's own city tables (names,
     positions and populations), the city-matrix models the port's own copy
-    of the ping matrix (`data/city_latency.npz`), and no port source names
-    a file of the JAX package."""
+    of the ping matrix (`data/city_latency.npz`), the regression replays
+    the port's own copies of the two pinned champions
+    (`scenarios/regressions/*.json`), and no port source names a file of
+    the JAX package (checkpoints are npz files by format)."""
     from wittgenstein_tpu_torch.core import geo
     from wittgenstein_tpu_torch.tools import latency_csv
 
@@ -221,11 +223,17 @@ def test_port_data_is_its_own():
     assert len(geo.GeoAllCities().cities_position()) == 241
     assert latency_csv.BAKED == PKG / "data" / "city_latency.npz" and latency_csv.BAKED.is_file()
     assert latency_csv.BAKED.stat().st_size < 200_000
+    from wittgenstein_tpu_torch.scenarios import regressions
+
+    assert regressions.REGRESSIONS_DIR == PKG / "scenarios" / "regressions"
+    pins = regressions.list_regressions()
+    assert [p.name for p in pins] == ["handel_es_s0.json", "p2pflood_es_s0.json"]
+    assert all(p.is_file() and p.stat().st_size < 16_000 for p in pins)
     for path in SOURCES:
         text = path.read_text()
         for needle in ("wittgenstein_tpu/data", "wittgenstein_tpu.data"):
             assert needle not in text, f"{path.relative_to(ROOT)} names {needle!r}"
-        assert ".npz" not in text or path.name == "latency_csv.py", path.name
+        assert ".npz" not in text or path.name in ("latency_csv.py", "checkpoint.py"), path.name
 
 
 def test_sweep_entry_points_default_to_cuda(monkeypatch, tmp_path):
@@ -253,5 +261,38 @@ def test_sweep_entry_points_default_to_cuda(monkeypatch, tmp_path):
     assert net.device.type == "cpu"
     names = {str(p.relative_to(PKG)) for p in SOURCES if p.parent.name in ("scenarios", "tools")}
     assert names == {"scenarios/__init__.py", "scenarios/sweep.py",
-                     "scenarios/handel_scenarios.py", "tools/__init__.py",
-                     "tools/latency_csv.py", "tools/csv_formatter.py", "tools/graph.py"}
+                     "scenarios/handel_scenarios.py", "scenarios/regressions.py",
+                     "tools/__init__.py", "tools/latency_csv.py", "tools/csv_formatter.py",
+                     "tools/graph.py", "tools/fault_sweep.py"}
+
+
+def test_search_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    """The search driver, the regression replay and the fault-sweep
+    command line: CUDA unless asked for the CPU, and without a card the
+    default raises; the search, checkpoint, recorder and lock modules are
+    among the sources held free of JAX imports."""
+    from wittgenstein_tpu_torch.scenarios.regressions import (
+        REGRESSIONS_DIR,
+        load_regression,
+        verify_regression,
+    )
+    from wittgenstein_tpu_torch.search import SearchConfig, SearchDriver
+    from wittgenstein_tpu_torch.tools import fault_sweep
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = SearchConfig(protocol="p2pflood", sim_ms=50, generations=1, population=2)
+    doc = load_regression(REGRESSIONS_DIR / "p2pflood_es_s0.json")
+    for run in (lambda: SearchDriver(cfg),
+                lambda: verify_regression(doc),
+                lambda: fault_sweep.main([str(tmp_path / "static")]),
+                lambda: fault_sweep.main([str(tmp_path / "search"), "--search"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run()
+    driver = SearchDriver(cfg, device="cpu")
+    assert driver.net.device.type == "cpu" and driver.state.down.device.type == "cpu"
+    names = {str(p.relative_to(PKG)) for p in SOURCES
+             if p.parent.name in ("search", "obs", "runtime") or p.name == "checkpoint.py"}
+    assert names == {"search/__init__.py", "search/genome.py", "search/objectives.py",
+                     "search/optimizers.py", "search/driver.py", "obs/__init__.py",
+                     "obs/context.py", "obs/recorder.py", "runtime/__init__.py",
+                     "runtime/locks.py", "engine/checkpoint.py"}

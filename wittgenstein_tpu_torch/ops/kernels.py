@@ -52,20 +52,39 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+_NVCC_VERSION = []  # the `nvcc --version` text, read once per process
+
+
+def nvcc_version() -> str:
+    """`nvcc --version`'s output, read at the first build or load that
+    needs it and kept for the process."""
+    if not _NVCC_VERSION:
+        _NVCC_VERSION.append(subprocess.run(
+            [nvcc_path(), "--version"], capture_output=True, text=True, check=True
+        ).stdout)
+    return _NVCC_VERSION[0]
+
+
 class CudaLibrary:
     """One source file built into one shared library."""
 
     def __init__(self, source: str):
         self.source = CSRC / source
         self.build_log = ""
+        self.builds = 0  # nvcc runs this process finished for this library
+        self.loads = 0  # times this process loaded it
         self._lib = None
 
     def lib_path(self) -> Path:
         # the digest covers the shared headers too, so editing one
-        # rebuilds every library that includes it
+        # rebuilds every library that includes it, and the flags and the
+        # toolkit, so a library is never loaded for another target or
+        # from another compiler
         h = hashlib.sha256(self.source.read_bytes())
         for header in sorted(CSRC.glob("*.cuh")):
             h.update(header.read_bytes())
+        h.update(repr(tuple(ARCH_FLAGS)).encode())
+        h.update(nvcc_version().encode())
         return BUILD_DIR / f"lib{self.source.stem}_{h.hexdigest()[:16]}.so"
 
     def start_build(self):
@@ -96,12 +115,14 @@ class CudaLibrary:
             os.unlink(tmp)
             raise RuntimeError(f"nvcc failed for {self.source.name}:\n{out}")
         os.replace(tmp, lib)
+        self.builds += 1
 
     def lib(self):
         """The loaded library, building it first if needed."""
         if self._lib is None:
             self.finish_build(self.start_build())
             self._lib = ctypes.CDLL(str(self.lib_path()))
+            self.loads += 1
         return self._lib
 
 
