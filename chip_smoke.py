@@ -308,8 +308,39 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 others', and
                 popcount_words, popcount_binop and cand_score launch;
                 attack_profile is ticks 200-209 inside the run
+ 26b. durable   scripts/durable_smoke.py's proof on the flagship, in three
+                child processes of this script (`--durable-child`) run
+                one after another on a thread, beside the phases from
+                dfinity on: make_handel(flagship_params(4096),
+                telemetry=TELE_CFG) through run_fault_sweep over a
+                control plan and a crash plan (10% of the nodes down from
+                100 ms, back at 300), R = 2, 400 ms.  The reference runs it
+                straight; the victim runs it resumable in 100-ms chunks
+                under the Supervisor (checkpoint_dir, a watchdog, a
+                tail-safe FlightRecorder JSONL beside the checkpoints, a
+                TimeSeriesStore and an InvariantSentinel through
+                supervisor_kw) and SIGKILLs itself in the heartbeat after
+                chunk 2; the resume is the victim's command line again.
+                The resume must start from step 2 and run 2 chunks, give
+                the reference's final state in every leaf (tele and faults
+                included) and records, row 0 the JAX package's seed-0 row
+                (DURABLE_R0, a digest of every leaf among its numbers);
+                the crash row counts faults; the recorder tells one story
+                under one run_id (admission, chunk-end over all 4 chunks
+                with tick counters, the checkpoints, the kill, the resume,
+                run-complete); the restored time series holds 4 chunk
+                samples; the sentinel raises nothing against
+                CAPACITY.json's handel@4096; the same sweep at 200-ms
+                chunks on the victim's directory raises
+                ResumeMismatchError before any chunk; the resume runs nvcc
+                zero times and launches the popcount family.  Prints each
+                run's ticks, ms and popcount launches a tick, seconds and
+                bytes a checkpoint, the restore's seconds and
+                chunk_time_histogram
  27. phase_seconds  each phase's wall seconds (profiles and checks included;
-                telemetry and pingpong_tele among them)
+                telemetry and pingpong_tele among them; `durable` is the
+                wait for its thread after the last phase, `durable_beside`
+                its own seconds)
  28. launches_by_path  each path's launch count of every form
  29. kernels    one line listing every ported kernel with its numbers
 
@@ -319,16 +350,20 @@ The last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import gc
 import hashlib
 import itertools
 import json
 import multiprocessing
+import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from typing import NamedTuple
 
@@ -337,7 +372,7 @@ import torch
 
 from wittgenstein_tpu_torch.core.registries import builder_name
 from wittgenstein_tpu_torch.engine import BatchedNetwork, map_state, replicate_state
-from wittgenstein_tpu_torch.engine.checkpoint import CheckpointManager
+from wittgenstein_tpu_torch.engine.checkpoint import CheckpointManager, _host_leaves, save_state
 from wittgenstein_tpu_torch.faults import FaultConfig, FaultPlan, lower_plans
 from wittgenstein_tpu_torch.interop import state_to_numpy
 from wittgenstein_tpu_torch.ops import bitops, kernels
@@ -390,7 +425,15 @@ from wittgenstein_tpu_torch.scenarios.sweep import (
     run_fault_sweep,
     run_sweep,
 )
-from wittgenstein_tpu_torch.obs.recorder import FlightRecorder
+from wittgenstein_tpu_torch.obs import (
+    LIVE_BASENAME,
+    FlightRecorder,
+    InvariantSentinel,
+    TimeSeriesStore,
+    mint_context,
+    read_events,
+)
+from wittgenstein_tpu_torch.runtime import ResumeMismatchError, Supervisor, WatchdogPolicy
 from wittgenstein_tpu_torch.scenarios.regressions import (
     REGRESSIONS_DIR,
     load_regression,
@@ -662,6 +705,21 @@ ATTACK_DECISION_MS = 100
 # the honest half is done by 500
 ATTACK_HORIZON_MS = 500
 ATTACK_PROFILE_FROM = 200  # the attack window's first tick
+# the durable phase: a supervised run_fault_sweep of the flagship with
+# telemetry, a control row and a crash row, killed and resumed
+DURABLE_MS = 400
+DURABLE_CHUNK_MS = 100
+DURABLE_KILL_AFTER = 2  # the victim's heartbeat after chunk index 2 SIGKILLs it
+DURABLE_CRASH = (0.10, 100, 300)  # share of the nodes down, from, back at (ms)
+# a generous guard: a chunk is 100 ticks, ~10 s on an H100
+DURABLE_WATCHDOG = WatchdogPolicy(chunk_deadline_s=180.0, compile_deadline_s=180.0)
+DURABLE_CHILD_TIMEOUT = 600
+# the JAX package's seed-0 control row at DURABLE_MS, score cache on as
+# on the card (no node is done by 400 ms: the flagship's finish at
+# 445-487; scripts/torch_r0_reference.py durable)
+DURABLE_R0 = {"digest": "cca0f63850af203e7a0be8b39703f142", "done": 0, "done_at_sum": 0,
+              "msg_received": 1104951, "msg_sent": 1104951, "sigs_checked": 57101,
+              "tele_sent": [0] * 13, "tele_delivered": [0] * 13, "ticks": 400, "time": 400}
 
 
 def emit(obj) -> None:
@@ -2249,6 +2307,349 @@ def p2p_replica0(states) -> dict:
                 "verified", "ver_card", "ver_sig", "peers_state", "ver_done_t", "last_check")}}
 
 
+def durable_plans(n: int) -> list:
+    """The durable sweep's plans: the control row and DURABLE_CRASH's
+    share of the nodes (the first ones) down from its first ms, back at
+    its second."""
+    share, at, back = DURABLE_CRASH
+    crash = FaultPlan(f"crash{int(share * 100)}@{at}").crash(
+        list(range(int(n * share))), at=at, recover=back)
+    return [None, crash]
+
+
+def durable_replica0(states) -> dict:
+    """Row 0 (the control) of the durable sweep in the numbers the JAX
+    package's seed-0 run gives (DURABLE_R0), with a digest of every leaf
+    of the row (checkpoint order, the JAX package's dtypes)."""
+    t = states.tele
+    h = hashlib.blake2b(digest_size=16)
+    for key, leaf in _host_leaves(states):
+        h.update(key.encode())
+        h.update(np.ascontiguousarray(leaf[0]).tobytes())
+    return {"digest": h.hexdigest(), "done": int((states.done_at[0] > 0).sum()),
+            "done_at_sum": int(states.done_at[0].to(torch.int64).sum()),
+            "msg_received": int(states.msg_received[0].to(torch.int64).sum()),
+            "msg_sent": int(states.msg_sent[0].to(torch.int64).sum()),
+            "sigs_checked": int(states.proto["sigs_checked"][0].to(torch.int64).sum()),
+            "tele_sent": t.sent[0].tolist(), "tele_delivered": t.delivered[0].tolist(),
+            "ticks": int(t.ticks[0]), "time": int(states.time[0])}
+
+
+@contextlib.contextmanager
+def _durable_probe():
+    """Record this process's checkpoint saves (seconds, bytes on disk),
+    restores (seconds) and supervised runs' provenance."""
+    io = {"saves": [], "restores": [], "provenance": []}
+    save, restore, run = (CheckpointManager.save, CheckpointManager.restore_latest,
+                          Supervisor.run)
+
+    def timed_save(mgr, state, step, meta=None):
+        t0 = time.perf_counter()
+        out = save(mgr, state, step, meta)
+        io["saves"].append({"step": step, "seconds": time.perf_counter() - t0,
+                            "bytes": os.path.getsize(mgr.path_for(step))})
+        return out
+
+    def timed_restore(mgr, template):
+        t0 = time.perf_counter()
+        out = restore(mgr, template)
+        io["restores"].append({"step": None if out is None else out[1],
+                               "seconds": time.perf_counter() - t0})
+        return out
+
+    def kept_run(sup):
+        report = run(sup)
+        io["provenance"].append(report.provenance)
+        return report
+
+    CheckpointManager.save, CheckpointManager.restore_latest = timed_save, timed_restore
+    Supervisor.run = kept_run
+    try:
+        yield io
+    finally:
+        CheckpointManager.save, CheckpointManager.restore_latest = save, restore
+        Supervisor.run = run
+
+
+@torch.inference_mode()
+def durable_child(role: str, ck: str) -> int:
+    """One process of the durable phase: the flagship with TELE_CFG
+    through run_fault_sweep over durable_plans, DURABLE_MS, as a user
+    runs it.  `reference`: straight, no checkpoint directory, no
+    recorder.  `victim`: resumable in `ck` (DURABLE_CHUNK_MS chunks,
+    watchdog armed), a tail-safe FlightRecorder JSONL beside the
+    checkpoints, a TimeSeriesStore and an InvariantSentinel, and a
+    heartbeat that SIGKILLs the process after chunk DURABLE_KILL_AFTER.
+    `resume`: the victim's arguments again, then the same sweep at twice
+    the chunk size, which must refuse to resume.  Saves the final state
+    to ck/final (engine.checkpoint's format) and prints its numbers as one
+    JSON line."""
+    _one_thread()
+    os.makedirs(ck, exist_ok=True)
+    t_build = time.perf_counter()
+    net, state = make_handel(flagship_params(FLAGSHIP_NODES), telemetry=TELE_CFG)
+    plans = durable_plans(FLAGSHIP_NODES)
+    torch.cuda.synchronize()
+    out = {"phase": f"durable_{role}", "nodes": FLAGSHIP_NODES, "replicas": len(plans),
+           "build_s": time.perf_counter() - t_build}
+    kw, rec, store, sentinel = {}, None, None, None
+    if role != "reference":
+        rec = FlightRecorder(path=os.path.join(ck, LIVE_BASENAME))
+        store, sentinel = TimeSeriesStore(), InvariantSentinel(net=net, recorder=rec)
+        ctx = None
+        if not CheckpointManager(ck).steps():
+            # a fresh run: this is its entry point; a resume adopts the
+            # run_id from the checkpoint manifest instead
+            ctx = mint_context("durable")
+            rec.record("admission", ctx, protocol="handel", nodes=FLAGSHIP_NODES,
+                       sim_ms=DURABLE_MS, chunk_ms=DURABLE_CHUNK_MS, plans=len(plans))
+
+        def heartbeat(i: int, dt: float) -> None:
+            if role == "victim" and i >= DURABLE_KILL_AFTER:
+                rec.record("kill", ctx, after_chunk=i, signal="SIGKILL")
+                os.kill(os.getpid(), signal.SIGKILL)
+
+        kw = dict(checkpoint_dir=ck, chunk_ms=DURABLE_CHUNK_MS, supervisor_kw=dict(
+            recorder=rec, timeseries=store, sentinel=sentinel, heartbeat=heartbeat, ctx=ctx,
+            watchdog=DURABLE_WATCHDOG))
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _durable_probe() as io:
+        states, records = run_fault_sweep(net, state, plans, DURABLE_MS, **kw)
+        torch.cuda.synchronize()
+        out["wall_s"] = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels.KERNELS}
+        if role == "resume":
+            # another chunk size on the same directory: refused before any chunk
+            ran = []
+            t1 = time.perf_counter()
+            try:
+                run_fault_sweep(net, state, plans, DURABLE_MS, checkpoint_dir=ck,
+                                chunk_ms=2 * DURABLE_CHUNK_MS,
+                                supervisor_kw=dict(recorder=FlightRecorder(),
+                                                   heartbeat=lambda i, dt: ran.append(i)))
+                refused = None
+            except ResumeMismatchError as e:
+                refused = str(e)[:200]
+            out["mismatch"] = {"refused": refused, "chunks_run": len(ran),
+                               "seconds": time.perf_counter() - t1}
+    if io["provenance"]:
+        prov = io["provenance"][0]
+        chunks = prov["chunk_time_hist"]["count"]
+        out.update({"ticks": chunks * DURABLE_CHUNK_MS,
+                    "run_s": prov["chunk_time_hist"]["sum_s"],
+                    "resumed_from_step": prov["resumed_from_step"], "chunks_run": chunks,
+                    "run_id": prov["run_id"], "checkpoints": prov["checkpoints"],
+                    "platform": prov["platform"], "degraded": prov["degraded"],
+                    "chunk_time_hist": prov["chunk_time_hist"]})
+    else:
+        out.update({"ticks": DURABLE_MS, "run_s": out["wall_s"]})
+    ticks = out["ticks"]
+    f = states.faults
+    out.update({
+        "ms_per_tick": out["run_s"] / ticks * 1e3,
+        "launches": launches, "launches_per_tick": {k: v / ticks for k, v in launches.items()},
+        "nvcc_builds": sum(lib.builds for lib in kernels.LIBRARIES),
+        "library_loads": sum(lib.loads for lib in kernels.LIBRARIES),
+        "saves": io["saves"], "restores": io["restores"],
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "replica0": durable_replica0(states), "records": records,
+        "crash_faults": {"dropped": int(f.dropped_by_fault[1].sum()),
+                         "delayed": int(f.delayed_by_fault[1].sum())},
+    })
+    if store is not None:
+        out["timeseries_chunk_seconds"] = store.count("supervisor.chunk_seconds")
+        out["sentinel_violations"] = sentinel.violations
+        out["sentinel_entry"] = sentinel.capacity_table.get(f"handel@{FLAGSHIP_NODES}")
+    t1 = time.perf_counter()
+    save_state(states, os.path.join(ck, "final"))
+    out["final_save_s"] = time.perf_counter() - t1
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+class _DurableChain:
+    """The durable phase's three child processes, one after another, on a
+    thread of the main process, so they run beside the main process's
+    other phases; `stop` kills a child that is still running."""
+
+    def __init__(self):
+        self.proc = None
+        self.result = self.error = None
+        self.seconds = None
+        self.t0 = None
+        self.thread = threading.Thread(target=self._run, name="durable", daemon=True)
+
+    def start(self) -> "_DurableChain":
+        atexit.register(self.stop)
+        self.t0 = time.perf_counter()
+        self.thread.start()
+        return self
+
+    def stop(self) -> None:
+        proc = self.proc
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+    def child(self, role: str, ck: str) -> tuple:
+        """-> (returncode, its JSON line or None, the end of its stderr,
+        seconds)."""
+        t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--durable-child", role, ck],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            stdout, stderr = self.proc.communicate(timeout=DURABLE_CHILD_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            self.stop()
+            raise AssertionError(f"durable: the {role} run exceeded "
+                                 f"{DURABLE_CHILD_TIMEOUT} s") from None
+        row = None
+        for line in stdout.splitlines():
+            if line.startswith("{"):
+                row = json.loads(line)
+        return self.proc.returncode, row, stderr[-4000:], time.perf_counter() - t0
+
+    def _run(self) -> None:
+        try:
+            self.result = durable(self)
+        except BaseException as e:  # noqa: BLE001 — re-raised by join
+            self.error = e
+        self.seconds = time.perf_counter() - self.t0
+
+    def join(self) -> dict:
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+        return self.result
+
+
+def _saved_diff(a: str, b: str) -> list:
+    """The leaves of two saved states whose shape, dtype or bytes differ."""
+    with np.load(a, allow_pickle=False) as x, np.load(b, allow_pickle=False) as y:
+        keys = sorted((set(x.files) | set(y.files)) - {"__manifest__"})
+        return [k for k in keys if k not in x.files or k not in y.files
+                or x[k].shape != y[k].shape or x[k].dtype != y[k].dtype
+                or x[k].tobytes() != y[k].tobytes()]
+
+
+def durable(chain: _DurableChain) -> dict:
+    """The durable phase (scripts/durable_smoke.py's proof on the
+    flagship): the reference child, the victim (which must die by
+    SIGKILL after chunk DURABLE_KILL_AFTER), then the resume on the
+    victim's directory.  Checks: the resume resumed from step
+    DURABLE_KILL_AFTER and ran the remaining chunks; its final state
+    equals the reference's in every leaf (tele and faults included) and
+    its records the reference's; row 0 equals the JAX package's
+    (DURABLE_R0); the crash row counted faults; the recorder tells one
+    story under one run_id (admission, every chunk's chunk-end across
+    both processes with tick counters, the checkpoints, the kill, the
+    resume, run-complete); the restored time series holds every chunk's
+    seconds; the sentinel raised nothing against the table's
+    handel@4096 entry; another chunk size was refused before any chunk;
+    the resume ran nvcc zero times and launched the popcount family."""
+    n_chunks = DURABLE_MS // DURABLE_CHUNK_MS
+    with tempfile.TemporaryDirectory(prefix="durable-") as d:
+        ref_dir, run_dir = os.path.join(d, "ref"), os.path.join(d, "run")
+        rc, ref, err, ref_s = chain.child("reference", ref_dir)
+        if rc != 0 or ref is None:
+            raise AssertionError(f"durable: the reference run failed (rc={rc}):\n{err}")
+        rc, _, err, victim_s = chain.child("victim", run_dir)
+        if rc != -signal.SIGKILL:
+            raise AssertionError(f"durable: the victim should die by SIGKILL, rc={rc}:\n{err}")
+        rc, res, err, resume_s = chain.child("resume", run_dir)
+        if rc != 0 or res is None:
+            raise AssertionError(f"durable: the resume run failed (rc={rc}):\n{err}")
+        diverged = _saved_diff(os.path.join(ref_dir, "final"), os.path.join(run_dir, "final"))
+        events = read_events(os.path.join(run_dir, LIVE_BASENAME))
+    first_resume = next(i for i, e in enumerate(events) if e["kind"] == "resume") \
+        if any(e["kind"] == "resume" for e in events) else len(events)
+    victim_ends = [e for e in events[:first_resume] if e["kind"] == "chunk-end"]
+    victim_ticks = len(victim_ends) * DURABLE_CHUNK_MS
+    victim_run_s = sum(e["seconds"] for e in victim_ends)
+    victim = {"phase": "durable_victim", "seconds": victim_s, "ticks": victim_ticks,
+              "run_s": victim_run_s, "ms_per_tick": victim_run_s / max(1, victim_ticks) * 1e3,
+              "chunk_seconds": [e["seconds"] for e in victim_ends],
+              "events": [e["kind"] for e in events[:first_resume]]}
+    ref["seconds"], res["seconds"] = ref_s, resume_s
+    emit(ref)
+    emit(victim)
+    emit(res)
+    pop = ("popcount_words", "popcount_binop", "cand_score")
+    run_ids = sorted({e["run_id"] for e in events if e.get("run_id")})
+    kinds = {e["kind"] for e in events}
+    ends = sorted({e.get("chunk_seq") for e in events if e["kind"] == "chunk-end"})
+    row = {"phase": "durable", "nodes": FLAGSHIP_NODES, "replicas": res["replicas"],
+           "ms": DURABLE_MS, "chunk_ms": DURABLE_CHUNK_MS,
+           "chain_s": time.perf_counter() - chain.t0,
+           "seconds": {"reference": ref_s, "victim": victim_s, "resume": resume_s},
+           "ms_per_tick": {"reference": ref["ms_per_tick"], "victim": victim["ms_per_tick"],
+                           "resume": res["ms_per_tick"]},
+           "launches_per_tick": {"reference": {k: ref["launches_per_tick"][k] for k in pop},
+                                 "resume": {k: res["launches_per_tick"][k] for k in pop}},
+           "checkpoint_s": [s["seconds"] for s in res["saves"]],
+           "checkpoint_bytes": [s["bytes"] for s in res["saves"]],
+           "restore_s": res["restores"][0]["seconds"],
+           "restored_step": res["restores"][0]["step"],
+           "chunk_time_hist": res["chunk_time_hist"],
+           "resumed_from_step": res["resumed_from_step"], "chunks_run": res["chunks_run"],
+           "leaves_diverged": diverged, "records_equal": res["records"] == ref["records"],
+           "run_ids": run_ids, "kinds": sorted(kinds), "chunk_ends": ends,
+           "timeseries_chunk_seconds": res["timeseries_chunk_seconds"],
+           "sentinel_violations": res["sentinel_violations"],
+           "sentinel_entry": res["sentinel_entry"], "mismatch": res["mismatch"],
+           "resume_nvcc_builds": res["nvcc_builds"], "crash_faults": res["crash_faults"],
+           "replica0": res["replica0"], "launches": res["launches"]}
+    emit(row)
+    if row["resumed_from_step"] != DURABLE_KILL_AFTER or \
+            row["chunks_run"] != n_chunks - DURABLE_KILL_AFTER:
+        raise AssertionError(f"durable: resumed from {row['resumed_from_step']} and ran "
+                             f"{row['chunks_run']} chunks")
+    if diverged:
+        raise AssertionError(f"durable: kill-and-resume diverged on leaves {diverged[:20]}")
+    if not row["records_equal"]:
+        raise AssertionError(f"durable: records {res['records']}, the reference's "
+                             f"{ref['records']}")
+    for tag, got in (("reference", ref["replica0"]), ("resume", res["replica0"])):
+        if got != DURABLE_R0:
+            raise AssertionError(f"durable: {tag} row 0 gives {got}, the JAX package "
+                                 f"{DURABLE_R0}")
+    if not (row["crash_faults"]["dropped"] and ref["crash_faults"]["dropped"]):
+        raise AssertionError(f"durable: the crash row counted no fault: {row['crash_faults']}")
+    if len(run_ids) != 1 or run_ids[0] != res["run_id"]:
+        raise AssertionError(f"durable: the recorder tells of run ids {run_ids}, the resume "
+                             f"ran {res['run_id']}")
+    need = {"admission", "chunk-start", "chunk-end", "checkpoint", "kill", "resume",
+            "run-complete"}
+    if not need <= kinds:
+        raise AssertionError(f"durable: the recorder lacks {sorted(need - kinds)}")
+    if ends != list(range(n_chunks)) or not all("ticks" in e for e in events
+                                                if e["kind"] == "chunk-end"):
+        raise AssertionError(f"durable: chunk-end events cover {ends} or lack tick counters")
+    if victim["events"].count("checkpoint") != DURABLE_KILL_AFTER:
+        raise AssertionError(f"durable: the victim wrote {victim['events'].count('checkpoint')} "
+                             "checkpoints")
+    if row["timeseries_chunk_seconds"] != n_chunks:
+        raise AssertionError(f"durable: the restored time series holds "
+                             f"{row['timeseries_chunk_seconds']} chunk samples")
+    if row["sentinel_violations"] or row["sentinel_entry"] is None:
+        raise AssertionError(f"durable: sentinel {row['sentinel_violations']} against "
+                             f"{row['sentinel_entry']}")
+    if row["mismatch"]["refused"] is None or row["mismatch"]["chunks_run"]:
+        raise AssertionError(f"durable: a changed chunk size was not refused: {row['mismatch']}")
+    if row["resume_nvcc_builds"]:
+        raise AssertionError(f"durable: the resume ran nvcc {row['resume_nvcc_builds']} times")
+    if res["platform"] != "gpu" or res["degraded"]:
+        raise AssertionError(f"durable: the resume ran on {res['platform']}, degraded "
+                             f"{res['degraded']}")
+    for name in pop:
+        if res["launches"][name] <= 0:
+            raise AssertionError(f"durable: {name} kernel never launched in the resume")
+    return row
+
+
 def p2phandel() -> dict:
     """P2PHandel at the reference defaults (120 nodes, 40 connections),
     R = P2P_REPLICAS, P2P_MS ms on the 512-row wheel, with p2p_profile
@@ -3553,7 +3954,7 @@ def paxos() -> dict:
 PHASES = ("kernels", "identity", "flagship", "telemetry", "sweep", "cities", "search", "pingpong",
           "faults_pingpong", "pingpong_tele", "dfinity", "gsf", "p2phandel", "handeleth2",
           "sanfermin", "casper", "paxos", "slush", "snowflake", "p2pflood", "optimistic",
-          "cappos", "enr", "ethpow", "miner_env", "attack_env")
+          "cappos", "enr", "ethpow", "miner_env", "attack_env", "durable")
 
 
 @torch.inference_mode()
@@ -3618,6 +4019,9 @@ def main(argv) -> int:
         runs["pingpong_tele"] = pingpong_tele(runs.get("pingpong"), pp_states)
         lap("pingpong_tele")
     del pp_states
+    # the durable phase's three processes run beside the phases from
+    # dfinity on, and are joined after the last
+    chain = _DurableChain().start() if want("durable") else None
     if want("dfinity"):
         runs["dfinity"] = dfinity()
         lap("dfinity")
@@ -3636,7 +4040,11 @@ def main(argv) -> int:
         if want(path):
             runs[path] = run()
             lap(path)
-    emit({"phase": "phase_seconds", **seconds, "total": sum(seconds.values())})
+    if chain is not None:
+        runs["durable"] = chain.join()
+        lap("durable")  # the wait for the chain after the last phase
+    emit({"phase": "phase_seconds", **seconds, "total": sum(seconds.values()),
+          "durable_beside": None if chain is None else chain.seconds})
     # every path's launches of every form, from that path's own run
     emit({"phase": "launches_by_path",
           **{path: out["launches"] for path, out in runs.items()}})
@@ -3678,4 +4086,7 @@ def main(argv) -> int:
 
 
 if __name__ == "__main__":
+    if "--durable-child" in sys.argv:
+        i = sys.argv.index("--durable-child")
+        sys.exit(durable_child(sys.argv[i + 1], sys.argv[i + 2]))
     sys.exit(main(sys.argv[1:]))

@@ -5,6 +5,7 @@ on the CPU.
     JAX_PLATFORMS=cpu python3 scripts/torch_r0_reference.py cities --out c.json
     JAX_PLATFORMS=cpu python3 scripts/torch_r0_reference.py ethpow --ms 300000 --out e.json
     JAX_PLATFORMS=cpu python3 scripts/torch_r0_reference.py p2phandel --ms 1000 --out p.json
+    JAX_PLATFORMS=cpu python3 scripts/torch_r0_reference.py durable --ms 400 --out d.json
 
 `byzantine`: point i of BASELINE config 3's sweep, (0.0, 0.05, 0.10,
 0.15, 0.20, 0.25) Byzantine at 4096 nodes under `default_params`, is
@@ -27,7 +28,11 @@ chip_smoke's `ethpow_chain`.  `p2phandel`, `sanfermin`, `handeleth2`,
 `cappos`: the phase's configuration, seed 0, run `--ms` ms, read by
 chip_smoke's `p2p_replica0`, `sf_replica0`, `eth2_replica0`,
 `cappos_replica0` (P2P_R0, SF_R0, ETH2_R0, CAPPOS_R0;
-handeleth2 also counts the nodes short of a full aggregate).  Imports
+handeleth2 also counts the nodes short of a full aggregate).
+`durable`: the durable phase's control row, the flagship at 4096 nodes
+with TELE_CFG and the score cache (the card's default) through
+run_fault_sweep at seed 0 for `--ms` (400) ms,
+read by chip_smoke's `durable_replica0` (DURABLE_R0), with its record.  Imports
 the JAX package, and for these readers the port's interop.
 """
 
@@ -180,7 +185,30 @@ def cappos(ms: int) -> dict:
     return {"ms": ms, "replica0": cs.cappos_replica0(state), "dropped": int(state.dropped.sum())}
 
 
-READERS = {"ethpow": ethpow, "p2phandel": p2phandel, "sanfermin": sanfermin,
+def durable(ms: int) -> dict:
+    """Row 0 of the durable phase's sweep: the flagship with TELE_CFG, the
+    control plan at seed 0, through the JAX package's run_fault_sweep."""
+    import chip_smoke as cs
+    from wittgenstein_tpu.profiling.ablation import flagship_params
+    from wittgenstein_tpu.scenarios.sweep import run_fault_sweep
+    from wittgenstein_tpu.telemetry.state import TelemetryConfig
+    from wittgenstein_tpu_torch.interop import state_from_numpy
+
+    tele = TelemetryConfig(snapshots=cs.TELE_CFG.snapshots,
+                           snapshot_every_ms=cs.TELE_CFG.snapshot_every_ms)
+    # score_cache on, as the port's make_handel has it on the card: the
+    # four cache leaves are in the row's digest
+    net, state = make_handel(flagship_params(cs.FLAGSHIP_NODES), telemetry=tele,
+                             score_cache=True)
+    out, records = run_fault_sweep(net, state, [None], ms)
+    leaves = {k: v if isinstance(v, tuple) else np.asarray(v)
+              for k, v in out._asdict().items() if k != "proto"}
+    leaves["proto"] = {k: np.asarray(v) for k, v in out.proto.items()}
+    return {"ms": ms, "replica0": cs.durable_replica0(state_from_numpy(leaves, "cpu")),
+            "record": records[0]}
+
+
+READERS = {"durable": durable, "ethpow": ethpow, "p2phandel": p2phandel, "sanfermin": sanfermin,
            "handeleth2": handeleth2, "cappos": cappos}
 
 

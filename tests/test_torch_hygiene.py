@@ -269,8 +269,9 @@ def test_sweep_entry_points_default_to_cuda(monkeypatch, tmp_path):
 def test_search_entry_points_default_to_cuda(monkeypatch, tmp_path):
     """The search driver, the regression replay and the fault-sweep
     command line: CUDA unless asked for the CPU, and without a card the
-    default raises; the search, checkpoint, recorder and lock modules are
-    among the sources held free of JAX imports."""
+    default raises; the search, checkpoint, recorder and lock modules, and
+    the supervisor with its taxonomy, policies and monitors, are among the
+    sources held free of JAX imports."""
     from wittgenstein_tpu_torch.scenarios.regressions import (
         REGRESSIONS_DIR,
         load_regression,
@@ -294,5 +295,7 @@ def test_search_entry_points_default_to_cuda(monkeypatch, tmp_path):
              if p.parent.name in ("search", "obs", "runtime") or p.name == "checkpoint.py"}
     assert names == {"search/__init__.py", "search/genome.py", "search/objectives.py",
                      "search/optimizers.py", "search/driver.py", "obs/__init__.py",
-                     "obs/context.py", "obs/recorder.py", "runtime/__init__.py",
-                     "runtime/locks.py", "engine/checkpoint.py"}
+                     "obs/context.py", "obs/recorder.py", "obs/attribution.py",
+                     "obs/monitor.py", "obs/timeseries.py", "runtime/__init__.py",
+                     "runtime/locks.py", "runtime/errors.py", "runtime/policy.py",
+                     "runtime/supervisor.py", "engine/checkpoint.py"}

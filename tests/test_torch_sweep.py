@@ -113,10 +113,24 @@ def test_fault_sweep_matches():
 @pytest.mark.parametrize("kw", [dict(checkpoint_dir="x"), dict(chunk_ms=100),
                                 dict(supervisor_kw={}), dict(use_run_cache=True)],
                          ids=["checkpoint_dir", "chunk_ms", "supervisor_kw", "use_run_cache"])
-def test_unported_fault_sweep_paths_raise(kw):
+def test_unported_fault_sweep_paths_raise(kw, tmp_path):
+    """use_run_cache (parallel.replica_shard, Queue A 16) is the one path
+    left unported, and raises.  The resumable path's arguments are ported
+    (test_torch_resumable_sweep.py): checkpoint_dir runs the sweep in one
+    100-ms chunk under the supervisor; alone, chunk_ms and supervisor_kw
+    are unused, as in the JAX package.  Each gives the plain sweep's
+    state and records."""
     net, state = tmake_pp(16, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A 1[56]"):
-        tsweep.run_fault_sweep(net, state, [None], 100, **kw)
+    if "use_run_cache" in kw:
+        with pytest.raises(NotImplementedError, match="Queue A 16"):
+            tsweep.run_fault_sweep(net, state, [None], 100, **kw)
+        return
+    if "checkpoint_dir" in kw:
+        kw = {"checkpoint_dir": str(tmp_path / "ck")}
+    out, records = tsweep.run_fault_sweep(net, state, [None], 100, **kw)
+    plain, plain_records = tsweep.run_fault_sweep(net, state, [None], 100)
+    assert records == plain_records
+    assert_same_state(state_to_numpy(plain), state_to_numpy(out), str(kw))
 
 
 def test_fault_sweep_argument_checks():

@@ -1,0 +1,241 @@
+"""Bounded in-process metric history.
+
+Prometheus exposition is instantaneous: a counter value with no past.
+A `TimeSeriesStore` keeps the history in the process: one bounded ring
+of (ts, value) samples per metric family, fed by the Supervisor's
+chunk-end sync point, and queried with rate / delta / quantile over
+sliding windows.
+
+- **host-side and bitwise-neutral**: the store only receives Python
+  floats read from already-synced states;
+- **bounded**: `capacity` samples per series (default 512);
+- **monotonic timestamps**: a sample's ts is clamped to its series'
+  last ts, so window queries never see time run backwards;
+- **checkpoint-portable**: `snapshot()`/`restore()` round-trip through
+  JSON, and the Supervisor threads them through the checkpoint manifest
+  meta.  The snapshot is the JAX package's (`witt-timeseries/v1`), so a
+  checkpoint written by either package carries its history across.
+
+`observe()` records a gauge sample (a measured value: seconds, an HWM),
+`inc()` a cumulative counter whose windowed `delta`/`rate` are the
+interesting queries.  Samples may carry the TraceContext ids of the
+event that produced them.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from typing import Dict, List, Optional
+
+from .context import TraceContext
+
+DEFAULT_CAPACITY = 512
+
+#: snapshot() trims each series to this many newest samples so the
+#: checkpoint manifest meta stays small
+SNAPSHOT_SAMPLES = 64
+
+SNAPSHOT_SCHEMA = "witt-timeseries/v1"
+
+
+def _quantile(values: List[float], q: float) -> float:
+    """Nearest-rank quantile of a non-empty list (0 for empty)."""
+    if not values:
+        return 0.0
+    xs = sorted(values)
+    idx = min(len(xs) - 1, max(0, int(round(q * (len(xs) - 1)))))
+    return xs[idx]
+
+
+class _Series:
+    """One metric family's ring: (ts, value, ctx_ids|None) triples, ts
+    non-decreasing.  `kind` is 'gauge' or 'counter'; a counter series
+    stores the cumulative value at each sample."""
+
+    __slots__ = ("kind", "samples", "cum")
+
+    def __init__(self, kind: str, capacity: int):
+        self.kind = kind
+        self.samples: deque = deque(maxlen=capacity)
+        self.cum = 0.0
+
+
+class TimeSeriesStore:
+    """Thread-safe bounded multi-series ring.  See module docstring."""
+
+    def __init__(self, capacity: int = DEFAULT_CAPACITY, clock=time.time):
+        if capacity <= 0:
+            raise ValueError(f"capacity must be positive, got {capacity}")
+        self.capacity = int(capacity)
+        self._clock = clock
+        self._series: Dict[str, _Series] = {}
+        self._lock = threading.Lock()
+
+    # -- feeding -------------------------------------------------------
+
+    def _series_for(self, name: str, kind: str) -> _Series:
+        """Caller holds the lock."""
+        s = self._series.get(name)
+        if s is None:
+            s = self._series[name] = _Series(kind, self.capacity)
+        elif s.kind != kind:
+            raise ValueError(f"series {name!r} is a {s.kind}, not a {kind}")
+        return s
+
+    def _stamp(self, s: _Series, ts: Optional[float]) -> float:
+        t = float(self._clock() if ts is None else ts)
+        if s.samples and t < s.samples[-1][0]:
+            t = s.samples[-1][0]  # monotonic within the series
+        return t
+
+    def observe(self, name: str, value: float, ts: Optional[float] = None,
+                ctx=None) -> None:
+        """Record one gauge sample (a measured value at a moment)."""
+        ids = ctx.ids() if isinstance(ctx, TraceContext) else ctx
+        with self._lock:
+            s = self._series_for(name, "gauge")
+            s.samples.append((self._stamp(s, ts), float(value), ids or None))
+
+    def inc(self, name: str, amount: float = 1.0,
+            ts: Optional[float] = None, ctx=None) -> None:
+        """Advance a cumulative counter and record the new total."""
+        ids = ctx.ids() if isinstance(ctx, TraceContext) else ctx
+        with self._lock:
+            s = self._series_for(name, "counter")
+            s.cum += float(amount)
+            s.samples.append((self._stamp(s, ts), s.cum, ids or None))
+
+    # -- queries -------------------------------------------------------
+
+    def names(self) -> List[str]:
+        with self._lock:
+            return sorted(self._series)
+
+    def _window(self, name: str, window_s: Optional[float],
+                now: Optional[float]):
+        """(in-window samples, baseline sample or None).  The baseline
+        is the newest sample older than the window: the counter value
+        the window's delta is measured against."""
+        with self._lock:
+            s = self._series.get(name)
+            samples = list(s.samples) if s is not None else []
+        if not samples:
+            return [], None
+        if window_s is None:
+            return samples, None
+        t = self._clock() if now is None else now
+        cut = t - window_s
+        inside = [x for x in samples if x[0] >= cut]
+        before = [x for x in samples if x[0] < cut]
+        return inside, (before[-1] if before else None)
+
+    def last(self, name: str) -> Optional[float]:
+        with self._lock:
+            s = self._series.get(name)
+            return s.samples[-1][1] if s is not None and s.samples else None
+
+    def count(self, name: str, window_s: Optional[float] = None,
+              now: Optional[float] = None) -> int:
+        inside, _ = self._window(name, window_s, now)
+        return len(inside)
+
+    def values(self, name: str, window_s: Optional[float] = None,
+               now: Optional[float] = None) -> List[float]:
+        inside, _ = self._window(name, window_s, now)
+        return [v for _, v, _ in inside]
+
+    def delta(self, name: str, window_s: float,
+              now: Optional[float] = None) -> float:
+        """Counter growth inside the window: newest value minus the
+        pre-window baseline (0 when the series began inside it)."""
+        inside, baseline = self._window(name, window_s, now)
+        if not inside:
+            return 0.0
+        base = baseline[1] if baseline is not None else 0.0
+        return inside[-1][1] - base
+
+    def rate(self, name: str, window_s: float,
+             now: Optional[float] = None) -> float:
+        """Counter delta per second over the window."""
+        if window_s <= 0:
+            raise ValueError(f"window_s must be positive, got {window_s}")
+        return self.delta(name, window_s, now) / window_s
+
+    def quantile(self, name: str, q: float,
+                 window_s: Optional[float] = None,
+                 now: Optional[float] = None) -> float:
+        return _quantile(self.values(name, window_s, now), q)
+
+    def mean(self, name: str, window_s: Optional[float] = None,
+             now: Optional[float] = None) -> Optional[float]:
+        vals = self.values(name, window_s, now)
+        return sum(vals) / len(vals) if vals else None
+
+    def latest_ctx(self, name: str, window_s: Optional[float] = None,
+                   now: Optional[float] = None) -> Optional[dict]:
+        """Trace ids of the newest in-window sample that carried any."""
+        inside, _ = self._window(name, window_s, now)
+        for _, _, ids in reversed(inside):
+            if ids:
+                return dict(ids)
+        return None
+
+    # -- checkpoint round-trip -----------------------------------------
+
+    def snapshot(self, max_samples: int = SNAPSHOT_SAMPLES) -> dict:
+        """JSON-serializable state: per-series kind + cumulative total +
+        the newest `max_samples` samples (ctx ids included)."""
+        with self._lock:
+            series = {
+                name: {
+                    "kind": s.kind,
+                    "cum": s.cum,
+                    "samples": [
+                        [t, v, ids] for t, v, ids in
+                        list(s.samples)[-max_samples:]
+                    ],
+                }
+                for name, s in self._series.items()
+            }
+        return {"schema": SNAPSHOT_SCHEMA, "series": series}
+
+    def restore(self, snap: dict) -> None:
+        """Adopt a snapshot's series (resume path).  A snapshot series
+        replaces the live one only when the live one is not strictly
+        newer: a fresh process resuming a killed run adopts the
+        checkpointed past wholesale, a same-process resume keeps its
+        own, more current, history."""
+        if not snap or snap.get("schema") != SNAPSHOT_SCHEMA:
+            return
+        with self._lock:
+            for name, rec in (snap.get("series") or {}).items():
+                rows = rec.get("samples", [])
+                live = self._series.get(name)
+                if live is not None and live.samples and (
+                    not rows
+                    or live.samples[-1][0] >= float(rows[-1][0])
+                ):
+                    continue
+                s = _Series(rec.get("kind", "gauge"), self.capacity)
+                s.cum = float(rec.get("cum", 0.0))
+                for row in rec.get("samples", []):
+                    t, v = float(row[0]), float(row[1])
+                    ids = row[2] if len(row) > 2 else None
+                    if s.samples and t < s.samples[-1][0]:
+                        t = s.samples[-1][0]
+                    s.samples.append((t, v, ids or None))
+                self._series[name] = s
+
+    def summary(self) -> dict:
+        """Small per-series digest."""
+        with self._lock:
+            return {
+                name: {
+                    "kind": s.kind,
+                    "samples": len(s.samples),
+                    "last": s.samples[-1][1] if s.samples else None,
+                }
+                for name, s in sorted(self._series.items())
+            }

@@ -230,12 +230,29 @@ def run_fault_sweep(
     record carries its `plan_digest` and the `seed0_row` its first row
     ran with.
 
-    The resumable and cached paths (`checkpoint_dir`, `chunk_ms`,
-    `supervisor_kw`, `use_run_cache`) are not ported: they raise."""
-    if checkpoint_dir is not None or chunk_ms is not None or supervisor_kw is not None:
-        raise NotImplementedError(
-            "the resumable fault sweep (checkpoint_dir, chunk_ms, supervisor_kw) needs the "
-            "runtime supervisor and checkpoints, which are not ported (ROADMAP Queue A 15)"
+    checkpoint_dir makes the sweep resumable: the pass runs chunked
+    (chunk_ms, default min(sim_ms, 100)) under runtime.Supervisor with a
+    checkpoint a chunk; an interrupted sweep re-invoked with the same
+    arguments resumes at its last checkpoint and gives a report equal to
+    the uninterrupted sweep's (keep stop_when_done=False for that claim:
+    the early exit depends on the chunk boundaries).  supervisor_kw goes
+    to `Supervisor.from_network` (recorder, timeseries, sentinel,
+    heartbeat, budget_s, max_chunks_this_run, ...).  A controlled partial
+    stop (budget or chunk cap) raises RunIncompleteError carrying the
+    partial RunReport.  The checkpoints are the JAX package's files, so a
+    sweep checkpointed by either package resumes in the other.
+
+    use_run_cache (the JAX package's cached compiled-program path) is
+    not ported: it raises."""
+    if use_run_cache and stop_when_done:
+        raise ValueError(
+            "use_run_cache evaluates a fixed-horizon cached program; "
+            "stop_when_done is not supported on that path"
+        )
+    if use_run_cache and checkpoint_dir is not None:
+        raise ValueError(
+            "use_run_cache and checkpoint_dir are mutually exclusive "
+            "(the resumable path runs chunked under the Supervisor)"
         )
     if use_run_cache:
         raise NotImplementedError(
@@ -276,7 +293,35 @@ def run_fault_sweep(
     batched = replicate_state(
         fstate, n_rep, seeds=np.arange(seed0, seed0 + n_rep, dtype=np.int64)
     )._replace(faults=fs)
-    out = fnet.run_ms_batched(batched, sim_ms, stop_when_done)
+    if checkpoint_dir is not None:
+        from ..runtime import RunIncompleteError, Supervisor
+
+        cms = int(chunk_ms or min(sim_ms, 100))
+        if sim_ms % cms != 0:
+            raise ValueError(
+                f"chunk_ms={cms} must divide sim_ms={sim_ms} for a "
+                "resumable sweep"
+            )
+        sup = Supervisor.from_network(
+            fnet,
+            batched,
+            total_ms=sim_ms,
+            chunk_ms=cms,
+            stop_when_done=stop_when_done,
+            checkpoint_dir=checkpoint_dir,
+            **(supervisor_kw or {}),
+        )
+        report = sup.run()
+        if not report.ok:
+            raise RunIncompleteError(
+                f"fault sweep stopped after {report.chunks_done}/"
+                f"{sup.n_chunks} chunks (budget/cap reached); checkpoint "
+                "saved — re-invoke with the same arguments to resume",
+                report=report,
+            )
+        out = report.state
+    else:
+        out = fnet.run_ms_batched(batched, sim_ms, stop_when_done)
 
     done = _host(out.done_at)
     down = _host(out.down)
