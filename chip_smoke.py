@@ -148,7 +148,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 digest, the champion (score, plan digest, seed0, found at
                 generation 0) and the best score of each generation must
                 be the JAX package's, no kernel library may be built or
-                loaded after the first generation, and the pin
+                loaded after the first generation, each generation
+                evaluates through the run cache (programs created a
+                generation: 1 · 1 · 0, each SearchDriver's first
+                generation creating its one), and the pin
                 p2pflood_es_s0.json replays through verify_regression to
                 its exact score with the static baselines re-scored to
                 exactly the pinned ones; each generation's eval seconds,
@@ -311,7 +314,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
  26b. durable   scripts/durable_smoke.py's proof on the flagship, in three
                 child processes of this script (`--durable-child`) run
                 one after another on a thread, beside the phases from
-                dfinity on: make_handel(flagship_params(4096),
+                pingpong on: make_handel(flagship_params(4096),
                 telemetry=TELE_CFG) through run_fault_sweep over a
                 control plan and a crash plan (10% of the nodes down from
                 100 ms, back at 300), R = 2, 400 ms.  The reference runs it
@@ -337,10 +340,38 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 run's ticks, ms and popcount launches a tick, seconds and
                 bytes a checkpoint, the restore's seconds and
                 chunk_time_histogram
+ 26c. serve    the serving path in a child process of this script
+                (`--serve-child`), on the durable phase's thread after
+                its three: one BatchScheduler(max_batch_replicas=4,
+                slice_chunks=2) on the card, one lane, harvest on, fed
+                (serve_jobs) BASELINE config 1's PingPong (1000 nodes,
+                700 ms, direct) as eight jobs, seeds 0-7: a control row
+                and one row under each fault op (crash, crash with
+                recovery, drop, inflate, silence, partition, delay), two
+                batches of 4 sharing one program; and two Handel jobs at
+                flagship_params(4096), 100-ms chunks, in one chunked
+                family: seed 0 for 400 ms and seed 1 for 300 ms with 10%
+                of the nodes down from 100 to 300 ms.  A priority-5
+                PingPong job (seed 8) is submitted from the scheduler's
+                hook once the Handel batch's first slice starts: the
+                batch parks at its slice boundary and resumes after it;
+                harvest compacts the Handel batch 4 -> 2 -> 1 rows.  Every
+                job's state digest must equal the JAX package's
+                run_singleton (SERVE_R0, Handel with the score cache);
+                the PingPong control and crash rows also the port's own
+                run_singleton on the card; the run cache must hold one
+                program per family geometry (PingPong direct at 4 rows,
+                Handel chunked at 4, 2 and 1 rows); a park, a resume and
+                a harvest; health() one live lane, no error kind and no
+                alert (SLO or sentinel); the PingPong and Handel kernels
+                launched.  Prints each job's wall and queue-wait seconds,
+                ms and launches a tick or iteration at each width, sims/s,
+                peak GB and the run-cache counters
  27. phase_seconds  each phase's wall seconds (profiles and checks included;
-                telemetry and pingpong_tele among them; `durable` is the
-                wait for its thread after the last phase, `durable_beside`
-                its own seconds)
+                telemetry and pingpong_tele among them; `beside` is the
+                wait for the durable and serve thread after the last
+                phase, `durable_beside` and `serve_beside` their own
+                seconds)
  28. launches_by_path  each path's launch count of every form
  29. kernels    one line listing every ported kernel with its numbers
 
@@ -352,6 +383,7 @@ from __future__ import annotations
 
 import atexit
 import contextlib
+import dataclasses
 import gc
 import hashlib
 import itertools
@@ -359,6 +391,7 @@ import json
 import multiprocessing
 import os
 import re
+import shutil
 import signal
 import subprocess
 import sys
@@ -433,6 +466,7 @@ from wittgenstein_tpu_torch.obs import (
     mint_context,
     read_events,
 )
+from wittgenstein_tpu_torch.parallel import run_cache_info, run_cache_metrics
 from wittgenstein_tpu_torch.runtime import ResumeMismatchError, Supervisor, WatchdogPolicy
 from wittgenstein_tpu_torch.scenarios.regressions import (
     REGRESSIONS_DIR,
@@ -440,6 +474,7 @@ from wittgenstein_tpu_torch.scenarios.regressions import (
     verify_regression,
 )
 from wittgenstein_tpu_torch.search import SearchConfig, SearchDriver, optimize_env_policy
+from wittgenstein_tpu_torch.serve import BatchScheduler, JobState
 from wittgenstein_tpu_torch.telemetry import TelemetryConfig
 from wittgenstein_tpu_torch.tools.csv_formatter import CSVFormatter
 
@@ -720,6 +755,62 @@ DURABLE_CHILD_TIMEOUT = 600
 DURABLE_R0 = {"digest": "cca0f63850af203e7a0be8b39703f142", "done": 0, "done_at_sum": 0,
               "msg_received": 1104951, "msg_sent": 1104951, "sigs_checked": 57101,
               "tele_sent": [0] * 13, "tele_delivered": [0] * 13, "ticks": 400, "time": 400}
+
+# the serve phase: one BatchScheduler on the card fed BASELINE config 1's
+# PingPong (direct: a control row and every fault op) and two flagship
+# Handel jobs of different horizons in one chunked family, then a
+# priority-5 PingPong job submitted once the Handel batch's first slice
+# has started.  Each job's state digest is pinned from the JAX package on
+# the CPU (SERVE_R0: `scripts/torch_r0_reference.py serve`)
+SERVE_BATCH = 4  # max_batch_replicas
+SERVE_SLICE = 2  # slice_chunks
+SERVE_CHUNK_MS = 100
+SERVE_CHILD_TIMEOUT = 900
+# label -> the JAX package's run_singleton digest (Handel with the score cache)
+SERVE_R0 = {
+    "pingpong_control": "8216dcb9f081e180f55eef427f99f276",
+    "pingpong_crash": "1ab28a26c01fea592e9dbe5d6448ed63",
+    "pingpong_crash_recover": "7c93681772f00db4043262c1cf065d72",
+    "pingpong_drop": "5f617bc6f96f939fbf4e857569d404f2",
+    "pingpong_inflate": "11a18e0f542704641344f260fcfce76d",
+    "pingpong_silence": "77acba8387b76a1f9ea854bcaba6a356",
+    "pingpong_partition": "c09976a241dbf333c312e8fe12efb4af",
+    "pingpong_delay": "b72bc8bf147099e6faee08565f00c3dc",
+    "handel_400": "11f9ccc5ffdcc992d66686afaa17e2b6",
+    "handel_300_crash": "905b97b6009fd0369ddb79ab7375451a",
+    "pingpong_preemptor": "5ec7778d4a2071034d33829ce54bc09e",
+}
+
+
+def serve_jobs(pp_nodes: int = PP_NODES, pp_ms: int = PP_MS,
+               handel_nodes: int = FLAGSHIP_NODES) -> list:
+    """(label, spec) of every job of the serve phase, in submission order;
+    the preemptor comes last.  The defaults are the card's widths."""
+    pp = {"protocol": "PingPong", "params": {"node_ct": pp_nodes}, "simMs": pp_ms}
+    handel = {"protocol": "Handel", "params": dataclasses.asdict(flagship_params(handel_nodes)),
+              "chunkMs": SERVE_CHUNK_MS, "priority": 0}
+    half = [0] * (pp_nodes // 2) + [1] * (pp_nodes - pp_nodes // 2)
+    pp_faults = {
+        "control": None,
+        "crash": [{"op": "crash", "nodes": [1, 2], "at": 100}],
+        "crash_recover": [{"op": "crash", "nodes": [3], "at": 50, "recover": 400}],
+        "drop": [{"op": "drop", "per_mille": 300}],
+        "inflate": [{"op": "inflate", "multiplier_pm": 2000, "add_ms": 5}],
+        "silence": [{"op": "silence", "nodes": [4]}],
+        "partition": [{"op": "partition", "groups": half, "start": 100, "end": 400}],
+        "delay": [{"op": "delay", "nodes": [5, 6], "delay_ms": 50}],
+    }
+    jobs = [(f"pingpong_{name}", {**pp, "seed": i, **({"faults": f} if f else {})})
+            for i, (name, f) in enumerate(pp_faults.items())]
+    share, at, back = DURABLE_CRASH
+    crash = [{"op": "crash", "nodes": list(range(int(handel_nodes * share))), "at": at,
+              "recover": back}]
+    return jobs + [
+        ("handel_400", {**handel, "seed": 0, "simMs": 4 * SERVE_CHUNK_MS}),
+        ("handel_300_crash", {**handel, "seed": 1, "simMs": 3 * SERVE_CHUNK_MS,
+                              "faults": crash}),
+        ("pingpong_preemptor", {**pp, "seed": 8, "priority": 5}),
+    ]
 
 
 def emit(obj) -> None:
@@ -2026,22 +2117,29 @@ def _run_probe():
     """Record every BatchedNetwork.run_ms_batched call while the search
     drives run_fault_sweep: its replicas, ms, wall seconds, loop
     iterations (the event-driven loop's count, else one a tick), ms an
-    iteration and launches of every form."""
+    iteration, launches of every form, and the run cache's programs so far
+    (`compiles`)."""
     orig = BatchedNetwork.run_ms_batched
     calls = []
+
+    def sync(states):
+        if states.time.is_cuda:
+            torch.cuda.synchronize()
 
     def run(net, states, ms, stop_when_done=False):
         before = {k.name: k.launches for k in kernels.KERNELS}
         net.jump_stats = None
-        torch.cuda.synchronize()
+        sync(states)
         t0 = time.perf_counter()
         out = orig(net, states, ms, stop_when_done)
-        torch.cuda.synchronize()
+        sync(states)
         wall = time.perf_counter() - t0
         its = net.jump_stats["iterations"] if net.jump_stats else ms
-        calls.append({"replicas": int(states.done_at.shape[0]), "ms": ms, "wall_s": wall,
+        calls.append({"protocol": type(net.protocol).__name__,
+                      "replicas": int(states.done_at.shape[0]), "ms": ms, "wall_s": wall,
                       "iterations": its, "ms_per_iteration": wall / its * 1e3,
-                      "launches": {k.name: k.launches - before[k.name] for k in kernels.KERNELS}})
+                      "launches": {k.name: k.launches - before[k.name] for k in kernels.KERNELS},
+                      "programs": run_cache_info()["compiles"]})
         return out
 
     BatchedNetwork.run_ms_batched = run
@@ -2084,8 +2182,11 @@ def search_campaign() -> dict:
     to 3.  Its config digest, champion and best score a generation must
     be the JAX package's (SEARCH_DIGEST, SEARCH_CHAMPION,
     SEARCH_GEN_SCORES), no kernel library may be built or loaded after
-    the first generation, and the pin replays exactly."""
+    the first generation, and the pin replays exactly.  Each generation
+    evaluates through the run cache: each SearchDriver's first generation
+    creates its one program, later ones none."""
     kernels.reset_launch_counts()
+    programs0 = run_cache_info()["compiles"]
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as ck, _run_probe() as calls:
         cfg = SearchConfig(**SEARCH_CAMPAIGN, checkpoint_dir=ck)
@@ -2101,8 +2202,10 @@ def search_campaign() -> dict:
     wall = time.perf_counter() - t0
     champ = report["champion"]
     gens = []
-    for row, call in zip(report["history"], calls):
+    programs = [programs0] + [call["programs"] for call in calls]
+    for row, call, new in zip(report["history"], calls, np.diff(programs).tolist()):
         gens.append({"gen": row["gen"], "eval_s": row["eval_s"], "evals": row["evals"],
+                     "programs_created": new,
                      "replicas": call["replicas"], "iterations": call["iterations"],
                      "ms_per_iteration": call["ms_per_iteration"],
                      "launches": call["launches"], "best_gen_score": row["best_gen_score"],
@@ -2188,6 +2291,10 @@ def _search_checks(outs: dict) -> dict:
     if scores != SEARCH_GEN_SCORES:
         raise AssertionError(f"search: best scores {scores}, the JAX package's "
                              f"{SEARCH_GEN_SCORES}")
+    created = [g["programs_created"] for g in camp["generations"]]
+    if created != [1, 1, 0]:
+        raise AssertionError(f"search: programs created per generation {created}: each "
+                             "SearchDriver's first generation creates one, later ones none")
     if camp["library_loads_after_first_generation"]:
         raise AssertionError("search: a kernel library was built or loaded after the first "
                              "generation")
@@ -2202,6 +2309,7 @@ def _search_checks(outs: dict) -> dict:
                 for k in handel["launches"]}
     row = {"phase": "search", "launches": launches,
            "campaign_s": camp["wall_s"], "campaign_evals_per_s": camp["evals_per_s"],
+           "campaign_programs_per_generation": created,
            "handel_replay_s": handel["wall_s"],
            "handel_ms_per_tick": handel["ms_per_iteration"],
            "handel_launches_per_tick": handel["launches_per_iteration"]}
@@ -2469,19 +2577,20 @@ def durable_child(role: str, ck: str) -> int:
     return 0
 
 
-class _DurableChain:
-    """The durable phase's three child processes, one after another, on a
-    thread of the main process, so they run beside the main process's
-    other phases; `stop` kills a child that is still running."""
+class _Beside:
+    """Phases whose child processes run one after another on one thread of
+    the main process, so they run beside the main process's other phases
+    and never beside each other (`phases`: (name, run) pairs, `run(beside)`
+    the phase); `stop` kills a child that is still running."""
 
-    def __init__(self):
+    def __init__(self, phases: list):
         self.proc = None
-        self.result = self.error = None
-        self.seconds = None
+        self.result, self.seconds, self.error = {}, {}, None
         self.t0 = None
-        self.thread = threading.Thread(target=self._run, name="durable", daemon=True)
+        self._phases = phases
+        self.thread = threading.Thread(target=self._run, name="beside", daemon=True)
 
-    def start(self) -> "_DurableChain":
+    def start(self) -> "_Beside":
         atexit.register(self.stop)
         self.t0 = time.perf_counter()
         self.thread.start()
@@ -2493,31 +2602,38 @@ class _DurableChain:
             proc.kill()
             proc.wait()
 
-    def child(self, role: str, ck: str) -> tuple:
-        """-> (returncode, its JSON line or None, the end of its stderr,
-        seconds)."""
+    def spawn(self, args: list, timeout: float, tag: str) -> tuple:
+        """Run this script with `args` -> (returncode, its JSON lines,
+        the end of its stderr, seconds)."""
         t0 = time.perf_counter()
         self.proc = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--durable-child", role, ck],
+            [sys.executable, os.path.abspath(__file__), *args],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         try:
-            stdout, stderr = self.proc.communicate(timeout=DURABLE_CHILD_TIMEOUT)
+            stdout, stderr = self.proc.communicate(timeout=timeout)
         except subprocess.TimeoutExpired:
             self.stop()
-            raise AssertionError(f"durable: the {role} run exceeded "
-                                 f"{DURABLE_CHILD_TIMEOUT} s") from None
-        row = None
-        for line in stdout.splitlines():
-            if line.startswith("{"):
-                row = json.loads(line)
-        return self.proc.returncode, row, stderr[-4000:], time.perf_counter() - t0
+            raise AssertionError(f"{tag} exceeded {timeout} s") from None
+        rows = [json.loads(line) for line in stdout.splitlines() if line.startswith("{")]
+        return self.proc.returncode, rows, stderr[-4000:], time.perf_counter() - t0
+
+    def child(self, role: str, ck: str) -> tuple:
+        """One durable child -> (returncode, its JSON line or None, the end
+        of its stderr, seconds)."""
+        rc, rows, err, seconds = self.spawn(["--durable-child", role, ck],
+                                            DURABLE_CHILD_TIMEOUT, f"durable: the {role} run")
+        return rc, rows[-1] if rows else None, err, seconds
 
     def _run(self) -> None:
-        try:
-            self.result = durable(self)
-        except BaseException as e:  # noqa: BLE001 — re-raised by join
-            self.error = e
-        self.seconds = time.perf_counter() - self.t0
+        for name, run in self._phases:
+            t0 = self.t0 = time.perf_counter()
+            try:
+                self.result[name] = run(self)
+            except BaseException as e:  # noqa: BLE001 — re-raised by join
+                self.error = e
+                return
+            finally:
+                self.seconds[name] = time.perf_counter() - t0
 
     def join(self) -> dict:
         self.thread.join()
@@ -2535,7 +2651,7 @@ def _saved_diff(a: str, b: str) -> list:
                 or x[k].tobytes() != y[k].tobytes()]
 
 
-def durable(chain: _DurableChain) -> dict:
+def durable(chain: _Beside) -> dict:
     """The durable phase (scripts/durable_smoke.py's proof on the
     flagship): the reference child, the victim (which must die by
     SIGKILL after chunk DURABLE_KILL_AFTER), then the resume on the
@@ -2647,6 +2763,138 @@ def durable(chain: _DurableChain) -> dict:
     for name in pop:
         if res["launches"][name] <= 0:
             raise AssertionError(f"durable: {name} kernel never launched in the resume")
+    return row
+
+
+def serve_run(jobs: list, device=None) -> tuple:
+    """The serve phase's scheduler run: BatchScheduler(max_batch_replicas=
+    SERVE_BATCH, slice_chunks=SERVE_SLICE) on `device` (None = CUDA), one
+    lane, harvest on, fed `jobs` but the last in order; the last (the
+    preemptor) is submitted from the scheduler's own hook once the chunked
+    batch's first slice starts.  Every run_ms_batched call is recorded
+    (`_run_probe`) and every launch count is reset to 0 just before the
+    run and read just after.  Checks every job done at its horizon, one
+    program per family geometry (PingPong direct at SERVE_BATCH rows;
+    Handel chunked at SERVE_BATCH rows and at each harvest width), a
+    park, a resume and a harvest, one live lane, no error kind and no
+    alert.  Returns (the numbers, with each job's digest; the
+    scheduler)."""
+    specs = dict(jobs)
+    pre_label, pre_spec = jobs[-1]
+    ck = tempfile.mkdtemp(prefix="serve-")
+    sched = BatchScheduler(max_batch_replicas=SERVE_BATCH, slice_chunks=SERVE_SLICE,
+                           checkpoint_root=ck, auto_start=False, device=device)
+    submitted = {}
+
+    def preempt_once(fam, batch):  # called before every device run
+        if fam.mode == "chunked" and pre_label not in submitted:
+            submitted[pre_label] = sched.submit(pre_spec)
+
+    sched.chaos_injector = preempt_once
+    info0 = run_cache_info()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _run_probe() as calls:
+        for label, spec in jobs[:-1]:
+            submitted[label] = sched.submit(spec)
+        sched.start()
+        deadline = time.monotonic() + SERVE_CHILD_TIMEOUT
+        while len(submitted) < len(jobs) and time.monotonic() < deadline:
+            time.sleep(0.05)
+        for label, job in submitted.items():
+            if not job.done_event.wait(max(0.0, deadline - time.monotonic())):
+                raise AssertionError(f"serve: {label} did not finish")
+        health = sched.health()
+        sched.stop()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    info = run_cache_info()
+    shutil.rmtree(ck, ignore_errors=True)
+    out_jobs = {}
+    for label, job in submitted.items():
+        if job.state is not JobState.DONE or job.result["time"] != specs[label]["simMs"]:
+            raise AssertionError(f"serve: {label} ended {job.state} ({job.error})")
+        out_jobs[label] = {"digest": job.result["digest"], "batch": job.batch_id,
+                           "wall_s": job.finished_at - job.submitted_at,
+                           "queue_wait_s": job.started_at - job.submitted_at}
+    by = {}
+    for c in calls:
+        by.setdefault((c["protocol"], c["replicas"]), []).append(c)
+    runs = []
+    for (proto, r), cs_ in sorted(by.items()):
+        its = sum(c["iterations"] for c in cs_)
+        w = sum(c["wall_s"] for c in cs_)
+        runs.append({"protocol": proto, "replicas": r, "calls": len(cs_), "iterations": its,
+                     "wall_s": w, "ms_per_iteration": w / its * 1e3,
+                     "launches_per_iteration": {
+                         k: sum(c["launches"][k] for c in cs_) / its for k in launches}})
+    programs = {(e["protocol"], e["sim_ms"]): [p["replicas"] for p in e["programs"]]
+                for e in run_cache_metrics()["entries"]}
+    m = sched.metrics.summary()
+    pp_ms = specs["pingpong_control"]["simMs"]
+    row = {"phase": "serve", "device": str(sched.device), "wall_s": wall, "jobs": out_jobs,
+           "sims_per_s": len(jobs) / wall, "runs": runs,
+           "run_cache": {k: info[k] - info0[k] for k in ("hits", "misses", "compiles")},
+           "programs": {"pingpong_direct": programs.get(("BatchedPingPong", pp_ms)),
+                        "handel_chunked": programs.get(("BatchedHandel", SERVE_CHUNK_MS))},
+           "preemptions": m["preemptions_total"], "resumes": m["resumes_total"],
+           "harvests": m["harvests_total"], "harvest_rows_freed": m["harvest_rows_freed_total"],
+           "batches": m["batches_total"], "occupancy_avg": m["occupancy_avg"],
+           "lanes_alive": health["lanesAlive"], "error_kinds": health["errorKinds"],
+           "alerts": health["alerts"], "launches": launches,
+           "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
+                       if sched.device.type == "cuda" else None)}
+    want_programs = {"pingpong_direct": [SERVE_BATCH],
+                     "handel_chunked": [SERVE_BATCH, SERVE_BATCH // 2, 1]}
+    if row["programs"] != want_programs or row["run_cache"]["compiles"] != 4:
+        raise AssertionError(f"serve: programs {row['programs']}, {row['run_cache']}; one "
+                             f"per family geometry is {want_programs}")
+    if not (row["preemptions"] and row["resumes"] and row["harvests"]):
+        raise AssertionError(f"serve: preemptions {row['preemptions']}, resumes "
+                             f"{row['resumes']}, harvests {row['harvests']}")
+    if submitted[pre_label].finished_at > submitted["handel_400"].finished_at:
+        raise AssertionError("serve: the preemptor did not run before the Handel batch ended")
+    if row["lanes_alive"] != 1 or row["error_kinds"] or row["alerts"]["total"]:
+        raise AssertionError(f"serve: lanes {row['lanes_alive']}, error kinds "
+                             f"{row['error_kinds']}, alerts {row['alerts']}")
+    return row, sched
+
+
+def serve_child() -> int:
+    """The serve phase's process: serve_run on the card at serve_jobs()'s
+    widths; every job's digest must be SERVE_R0's, the PingPong control
+    and crash rows must equal the port's own run_singleton on the card,
+    and the path's kernels must have launched.  Prints its row as one
+    JSON line."""
+    _one_thread()
+    row, sched = serve_run(serve_jobs())
+    jobs = dict(serve_jobs())
+    wrong = {k: v["digest"] for k, v in row["jobs"].items() if SERVE_R0.get(k) != v["digest"]}
+    if wrong:
+        raise AssertionError(f"serve: digests {wrong}, the JAX package's "
+                             f"{ {k: SERVE_R0.get(k) for k in wrong} }")
+    for label in ("pingpong_control", "pingpong_crash"):
+        single = sched.run_singleton(jobs[label])["digest"]
+        if single != row["jobs"][label]["digest"]:
+            raise AssertionError(f"serve: {label} batched {row['jobs'][label]['digest']}, "
+                                 f"run_singleton {single}")
+    for name in ("popcount_words", "popcount_binop", "cand_score", "lowest_set_bit",
+                 "pack_occupied"):
+        if row["launches"][name] <= 0:
+            raise AssertionError(f"serve: {name} kernel never launched in the served run")
+    print(json.dumps(row), flush=True)
+    return 0
+
+
+def serve(beside: _Beside) -> dict:
+    """The serve phase: serve_child in a child process of this script
+    (`--serve-child`), beside the main process's phases."""
+    rc, rows, err, seconds = beside.spawn(["--serve-child"], SERVE_CHILD_TIMEOUT,
+                                          "serve: the scheduler run")
+    if rc != 0 or not rows:
+        raise AssertionError(f"serve: the scheduler run failed (rc={rc}):\n{err}")
+    row = {**rows[-1], "seconds": seconds}
+    emit(row)
     return row
 
 
@@ -3954,7 +4202,7 @@ def paxos() -> dict:
 PHASES = ("kernels", "identity", "flagship", "telemetry", "sweep", "cities", "search", "pingpong",
           "faults_pingpong", "pingpong_tele", "dfinity", "gsf", "p2phandel", "handeleth2",
           "sanfermin", "casper", "paxos", "slush", "snowflake", "p2pflood", "optimistic",
-          "cappos", "enr", "ethpow", "miner_env", "attack_env", "durable")
+          "cappos", "enr", "ethpow", "miner_env", "attack_env", "durable", "serve")
 
 
 @torch.inference_mode()
@@ -4007,6 +4255,12 @@ def main(argv) -> int:
             emit({"phase": "byz_rows", "lowest_set_bit": lowest_rows,
                   "lowest_set_bit_andnot": andnot_rows})
         lap("sweep")
+    # the durable phase's three processes, then the serve phase's one, run
+    # one after another beside the phases from pingpong on, and are joined
+    # after the last
+    beside = [(name, run) for name, run in (("durable", durable), ("serve", serve))
+              if want(name)]
+    chain = _Beside(beside).start() if beside else None
     pp_states = None
     if want("pingpong"):
         runs["pingpong"] = pp = pingpong()
@@ -4019,9 +4273,6 @@ def main(argv) -> int:
         runs["pingpong_tele"] = pingpong_tele(runs.get("pingpong"), pp_states)
         lap("pingpong_tele")
     del pp_states
-    # the durable phase's three processes run beside the phases from
-    # dfinity on, and are joined after the last
-    chain = _DurableChain().start() if want("durable") else None
     if want("dfinity"):
         runs["dfinity"] = dfinity()
         lap("dfinity")
@@ -4041,10 +4292,10 @@ def main(argv) -> int:
             runs[path] = run()
             lap(path)
     if chain is not None:
-        runs["durable"] = chain.join()
-        lap("durable")  # the wait for the chain after the last phase
+        runs.update(chain.join())
+        lap("beside")  # the wait for the chain after the last phase
     emit({"phase": "phase_seconds", **seconds, "total": sum(seconds.values()),
-          "durable_beside": None if chain is None else chain.seconds})
+          **{f"{name}_beside": s for name, s in (chain.seconds if chain else {}).items()}})
     # every path's launches of every form, from that path's own run
     emit({"phase": "launches_by_path",
           **{path: out["launches"] for path, out in runs.items()}})
@@ -4089,4 +4340,6 @@ if __name__ == "__main__":
     if "--durable-child" in sys.argv:
         i = sys.argv.index("--durable-child")
         sys.exit(durable_child(sys.argv[i + 1], sys.argv[i + 2]))
+    if "--serve-child" in sys.argv:
+        sys.exit(serve_child())
     sys.exit(main(sys.argv[1:]))

@@ -6,6 +6,7 @@ on the CPU.
     JAX_PLATFORMS=cpu python3 scripts/torch_r0_reference.py ethpow --ms 300000 --out e.json
     JAX_PLATFORMS=cpu python3 scripts/torch_r0_reference.py p2phandel --ms 1000 --out p.json
     JAX_PLATFORMS=cpu python3 scripts/torch_r0_reference.py durable --ms 400 --out d.json
+    JAX_PLATFORMS=cpu python3 scripts/torch_r0_reference.py serve --out s.json
 
 `byzantine`: point i of BASELINE config 3's sweep, (0.0, 0.05, 0.10,
 0.15, 0.20, 0.25) Byzantine at 4096 nodes under `default_params`, is
@@ -32,8 +33,13 @@ handeleth2 also counts the nodes short of a full aggregate).
 `durable`: the durable phase's control row, the flagship at 4096 nodes
 with TELE_CFG and the score cache (the card's default) through
 run_fault_sweep at seed 0 for `--ms` (400) ms,
-read by chip_smoke's `durable_replica0` (DURABLE_R0), with its record.  Imports
-the JAX package, and for these readers the port's interop.
+read by chip_smoke's `durable_replica0` (DURABLE_R0), with its record.
+`serve`: every job of chip_smoke's serve phase (`serve_jobs()`: BASELINE
+config 1's PingPong under each fault op, the two flagship Handel jobs,
+the preemptor) through the JAX package's `BatchScheduler.run_singleton`,
+Handel built with the score cache on (the card's default): the state
+digest of each (SERVE_R0; `--ms` is unused; ~10 min).  Imports the JAX
+package, and for these readers the port's interop.
 """
 
 from __future__ import annotations
@@ -208,7 +214,37 @@ def durable(ms: int) -> dict:
             "record": records[0]}
 
 
-READERS = {"durable": durable, "ethpow": ethpow, "p2phandel": p2phandel, "sanfermin": sanfermin,
+def serve(ms: int) -> dict:
+    """The JAX package's run_singleton digest of every serve-phase job."""
+    del ms
+    import chip_smoke as cs
+    from wittgenstein_tpu.profiling.ablation import flagship_params
+    from wittgenstein_tpu.protocols.handel import HandelParameters
+    from wittgenstein_tpu.serve import BatchScheduler, jobs
+
+    handel_params = dict(cs.serve_jobs())["handel_400"]["params"]
+    if handel_params != dataclasses.asdict(flagship_params(cs.FLAGSHIP_NODES)):
+        raise SystemExit("the serve phase's Handel params are not the JAX package's flagship")
+
+    def handel(params, telemetry):
+        # score_cache on, as the port's make_handel has it on the card: the
+        # four cache leaves are in every Handel row's digest
+        return make_handel(HandelParameters(**params), telemetry=telemetry, score_cache=True)
+
+    jobs.SERVE_PROTOCOLS["Handel"] = dataclasses.replace(
+        jobs.serve_protocol("Handel"), build=handel)
+    sched = BatchScheduler(auto_start=False)
+    out = {}
+    for label, spec in cs.serve_jobs():
+        t0 = time.perf_counter()
+        res = sched.run_singleton(spec)
+        out[label] = res["digest"]
+        print(json.dumps({"job": label, "digest": res["digest"], "time": res["time"],
+                          "seconds": round(time.perf_counter() - t0, 1)}), flush=True)
+    return {"serve_r0": out}
+
+
+READERS = {"durable": durable, "serve": serve, "ethpow": ethpow, "p2phandel": p2phandel, "sanfermin": sanfermin,
            "handeleth2": handeleth2, "cappos": cappos}
 
 

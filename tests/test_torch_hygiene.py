@@ -296,6 +296,27 @@ def test_search_entry_points_default_to_cuda(monkeypatch, tmp_path):
     assert names == {"search/__init__.py", "search/genome.py", "search/objectives.py",
                      "search/optimizers.py", "search/driver.py", "obs/__init__.py",
                      "obs/context.py", "obs/recorder.py", "obs/attribution.py",
-                     "obs/monitor.py", "obs/timeseries.py", "runtime/__init__.py",
-                     "runtime/locks.py", "runtime/errors.py", "runtime/policy.py",
-                     "runtime/supervisor.py", "engine/checkpoint.py"}
+                     "obs/monitor.py", "obs/timeseries.py", "obs/slo.py",
+                     "runtime/__init__.py", "runtime/locks.py", "runtime/errors.py",
+                     "runtime/policy.py", "runtime/supervisor.py", "engine/checkpoint.py"}
+
+
+def test_serving_entry_points_default_to_cuda(monkeypatch):
+    """The batch scheduler and the device groups: CUDA unless asked for
+    the CPU, and without a card the default raises; the serving and run
+    cache modules are among the sources held free of JAX imports."""
+    from wittgenstein_tpu_torch.parallel import make_device_groups
+    from wittgenstein_tpu_torch.serve import BatchScheduler
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BatchScheduler(auto_start=False)
+    with pytest.raises(ValueError, match="no devices visible"):
+        make_device_groups(1)
+    assert BatchScheduler(auto_start=False, device="cpu").device.type == "cpu"
+    names = {str(p.relative_to(PKG)) for p in SOURCES
+             if p.parent.name in ("serve", "parallel")}
+    assert names == {"serve/__init__.py", "serve/jobs.py", "serve/metrics.py",
+                     "serve/scheduler.py", "parallel/__init__.py",
+                     "parallel/device_groups.py", "parallel/replica_shard.py"}

@@ -14,6 +14,7 @@ import threading
 import pytest
 
 from wittgenstein_tpu.obs import recorder as jrec
+from wittgenstein_tpu.runtime import locks as jlocks
 from wittgenstein_tpu_torch.obs import context as tctx
 from wittgenstein_tpu_torch.obs import recorder as trec
 from wittgenstein_tpu_torch.runtime import locks as tlocks
@@ -119,7 +120,13 @@ def test_threads_lose_no_event():
 
 
 def test_lock_registry_and_tracer(monkeypatch):
-    assert [s.name for s in tlocks.LOCK_HIERARCHY] == ["obs.recorder_default", "obs.recorder"]
+    # the port's rows, in the JAX package's relative order
+    assert [s.name for s in tlocks.LOCK_HIERARCHY] == [
+        "serve.worker", "serve.dispatch", "serve.family", "runcache.entry",
+        "runcache.compile", "obs.recorder_default", "obs.recorder"]
+    jax_rank = {spec.name: i for i, spec in enumerate(jlocks.LOCK_HIERARCHY)}
+    names = [spec.name for spec in tlocks.LOCK_HIERARCHY]
+    assert names == sorted(names, key=jax_rank.__getitem__)
     with pytest.raises(ValueError, match="not in LOCK_HIERARCHY"):
         tlocks.make_lock("nope")
     monkeypatch.delenv(trec.ENV_DIR, raising=False)

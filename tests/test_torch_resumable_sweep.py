@@ -7,8 +7,8 @@ uninterrupted sweep, and both equal the JAX package's sweep in every
 leaf and record.  A partial checkpoint directory written by the JAX
 package resumes in the port to the JAX package's final state, and one
 written by the port resumes in the JAX package.  A changed chunk size
-refuses to resume; use_run_cache still raises, after the check that it
-and checkpoint_dir exclude each other.
+refuses to resume; use_run_cache and checkpoint_dir exclude each other,
+and the run-cache path gives the uncached sweep's records.
 """
 
 import numpy as np
@@ -148,5 +148,5 @@ def test_argument_checks(nets, tmp_path):
                         use_run_cache=True)
     with pytest.raises(ValueError, match="stop_when_done"):
         run_fault_sweep(tnet, ts, [None], SIM_MS, use_run_cache=True, stop_when_done=True)
-    with pytest.raises(NotImplementedError, match="Queue A 16"):
-        run_fault_sweep(tnet, ts, [None], SIM_MS, use_run_cache=True)
+    _, cached = run_fault_sweep(tnet, ts, [None], SIM_MS, use_run_cache=True)
+    assert cached == run_fault_sweep(tnet, ts, [None], SIM_MS)[1]

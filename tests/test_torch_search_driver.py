@@ -8,7 +8,9 @@ directory, the port's campaign reaches the same champion; a directory of
 another config is refused.  A pin the port writes replays bitwise in the
 JAX package's `verify_regression`, and one the JAX package writes
 replays in the port's; an optimizer checkpoint written by either package
-resumes a campaign in the other.
+resumes a campaign in the other.  A generation evaluates through the
+run cache, as the JAX package's does: a 2-generation campaign creates
+one program and hits it once, in both packages.
 """
 
 import dataclasses
@@ -17,10 +19,12 @@ import numpy as np
 import pytest
 import torch
 
+from wittgenstein_tpu.parallel import replica_shard as jrc
 from wittgenstein_tpu.scenarios import regressions as jreg
 from wittgenstein_tpu.search import SearchConfig as JConfig
 from wittgenstein_tpu.search import SearchDriver as JDriver
 from wittgenstein_tpu_torch.obs.recorder import FlightRecorder
+from wittgenstein_tpu_torch.parallel import replica_shard as trc
 from wittgenstein_tpu_torch.scenarios import regressions as treg
 from wittgenstein_tpu_torch.search import SearchConfig as TConfig
 from wittgenstein_tpu_torch.search import SearchDriver as TDriver
@@ -80,6 +84,17 @@ def test_campaign_equals_jax(jax_driver, jax_report):
         assert np.array_equal(driver.opt.state_arrays()[k], v), k
     kinds = [e["kind"] for e in rec.events()]
     assert kinds == ["search-generation"] * 3 + ["search-complete"]
+
+
+def test_generations_share_one_program():
+    keys = ("hits", "misses", "compiles")
+    deltas = []
+    for info, driver in ((jrc.run_cache_info, lambda: JDriver(JConfig(**{**SMALL, "generations": 2}))),
+                         (trc.run_cache_info, lambda: _tdriver(generations=2))):
+        before = info()
+        driver().run()
+        deltas.append({k: info()[k] - before[k] for k in keys})
+    assert deltas[1] == deltas[0] == {"hits": 1, "misses": 1, "compiles": 1}
 
 
 def test_kill_and_resume_bitwise(tmp_path, jax_report):

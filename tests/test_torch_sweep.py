@@ -7,7 +7,8 @@ parameters; under a TelemetryConfig its telemetry records
 (the getters' reductions, the counters, the progress series and the
 host-side CDF) are the JAX package's too.  `run_fault_sweep` with a
 duplicated plan gives the JAX package's records, dedupe counters and
-out-state leaves; its resumable and cached paths raise.
+out-state leaves, and so does its run-cache path, with the JAX
+package's run-cache counts.
 """
 
 import dataclasses
@@ -18,12 +19,14 @@ import torch
 
 from test_torch_paxos import assert_same_state, jax_numpy
 from wittgenstein_tpu.faults import FaultPlan as JPlan
+from wittgenstein_tpu.parallel import replica_shard as jrc
 from wittgenstein_tpu.protocols.pingpong_batched import make_pingpong as jmake_pp
 from wittgenstein_tpu.scenarios import handel_scenarios as jsc
 from wittgenstein_tpu.scenarios import sweep as jsweep
 from wittgenstein_tpu.telemetry import TelemetryConfig as JTele
 from wittgenstein_tpu_torch.faults import FaultPlan as TPlan
 from wittgenstein_tpu_torch.interop import state_to_numpy
+from wittgenstein_tpu_torch.parallel import replica_shard as trc
 from wittgenstein_tpu_torch.protocols.pingpong_batched import make_pingpong as tmake_pp
 from wittgenstein_tpu_torch.scenarios import handel_scenarios as tsc
 from wittgenstein_tpu_torch.scenarios import sweep as tsweep
@@ -114,23 +117,39 @@ def test_fault_sweep_matches():
                                 dict(supervisor_kw={}), dict(use_run_cache=True)],
                          ids=["checkpoint_dir", "chunk_ms", "supervisor_kw", "use_run_cache"])
 def test_unported_fault_sweep_paths_raise(kw, tmp_path):
-    """use_run_cache (parallel.replica_shard, Queue A 16) is the one path
-    left unported, and raises.  The resumable path's arguments are ported
-    (test_torch_resumable_sweep.py): checkpoint_dir runs the sweep in one
-    100-ms chunk under the supervisor; alone, chunk_ms and supervisor_kw
+    """Every path of run_fault_sweep is ported now: use_run_cache runs
+    through the run cache (parallel.replica_shard); checkpoint_dir runs
+    the sweep in one 100-ms chunk under the supervisor
+    (test_torch_resumable_sweep.py); alone, chunk_ms and supervisor_kw
     are unused, as in the JAX package.  Each gives the plain sweep's
     state and records."""
     net, state = tmake_pp(16, device="cpu")
-    if "use_run_cache" in kw:
-        with pytest.raises(NotImplementedError, match="Queue A 16"):
-            tsweep.run_fault_sweep(net, state, [None], 100, **kw)
-        return
     if "checkpoint_dir" in kw:
         kw = {"checkpoint_dir": str(tmp_path / "ck")}
     out, records = tsweep.run_fault_sweep(net, state, [None], 100, **kw)
     plain, plain_records = tsweep.run_fault_sweep(net, state, [None], 100)
     assert records == plain_records
     assert_same_state(state_to_numpy(plain), state_to_numpy(out), str(kw))
+
+
+def test_run_cache_fault_sweep_matches_jax():
+    """use_run_cache=True: the records and the out state equal the JAX
+    package's cached sweep, and a second sweep of the same geometry is a
+    run-cache hit in both packages (one program, no more)."""
+    jnet, jstate = jmake_pp(16)
+    tnet, tstate = tmake_pp(16, device="cpu")
+    j0, t0 = jrc.run_cache_info(), trc.run_cache_info()
+    for _ in range(2):
+        jout, jrec = jsweep.run_fault_sweep(jnet, jstate, _plans(JPlan), 300,
+                                            replicas_per_plan=2, seed0=5, use_run_cache=True)
+        tout, trec = tsweep.run_fault_sweep(tnet, tstate, _plans(TPlan), 300,
+                                            replicas_per_plan=2, seed0=5, use_run_cache=True)
+        assert trec == jrec
+        assert_same_state(jax_numpy(jout), state_to_numpy(tout), "cached fault sweep")
+    keys = ("hits", "misses", "compiles")
+    delta = {k: trc.run_cache_info()[k] - t0[k] for k in keys}
+    assert delta == {k: jrc.run_cache_info()[k] - j0[k] for k in keys}
+    assert delta == {"hits": 1, "misses": 1, "compiles": 1}
 
 
 def test_fault_sweep_argument_checks():

@@ -23,8 +23,8 @@ Entry points (`protocols.handel_batched.make_handel`,
 `protocols.ethpow_env.BatchedMinerEnv`,
 `protocols.handel_env.BatchedAttackEnv`,
 `engine.core.BatchedNetwork` with `BatchedNetwork.with_faults` and
-`BatchedNetwork.with_telemetry`, and `faults.FaultPlan`'s
-`lower`/`lower_plans`)
+`BatchedNetwork.with_telemetry`, `faults.FaultPlan`'s
+`lower`/`lower_plans`, and `serve.BatchScheduler`)
 run on CUDA unless the caller passes `device="cpu"`; without a card they
 raise instead of falling back.  On a
 CUDA tensor every bitset op launches its kernel; on a CPU tensor it runs
@@ -48,6 +48,9 @@ find:
               run records, progress series), SpanTracer, phase timing
   ops/        packed-bitset ops, their CUDA kernels (ops/csrc) and binding
   oracle/     the P2P overlay graph builder (host-side, no DES)
+  parallel/   the run cache (one program per network, horizon and input
+              geometry) and device groups
+  serve/      the batch scheduler, its jobs and metrics
   protocols/  batched Handel and GSF on the bitset-aggregation base;
               P2PHandel, HandelEth2, SanFermin and SanFerminCappos,
               per-ms on the time wheel; PingPong, Dfinity, Paxos, Slush

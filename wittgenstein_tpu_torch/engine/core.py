@@ -241,6 +241,7 @@ class BatchedNetwork:
         self.n_nodes = n_nodes
         self.capacity = capacity
         self.jump_stats = None  # set by each event-driven run
+        self.batched_jumps = batched_jumps
         # the telemetry side-car's static switch: None runs no telemetry op
         self.telemetry = telemetry
         # the fault lanes' static switch: None runs no fault op
@@ -339,6 +340,40 @@ class BatchedNetwork:
             batch = self.apply_emissions(batch, emissions, 0)
             state = map_state(lambda a: a[0], batch)
         return state
+
+    # -- program identity -----------------------------------------------------
+    def cache_key(self) -> tuple:
+        """Explicit identity for the run cache (parallel.replica_shard):
+        protocol name + the static knobs that shape a run, the JAX
+        package's key over the port's own fields.  id(protocol)/id(latency)
+        tell instances with different behavior params apart; a cached
+        entry keeps the engine alive, so the ids cannot be recycled while
+        it lives.  Where the JAX package has its bitset backend the port
+        has the engine's device: the tensors' device picks the kernel
+        form."""
+        static = self.stable_cache_key()
+        return static[:2] + (id(self.protocol), id(self.latency)) + static[2:]
+
+    def stable_cache_key(self) -> tuple:
+        """cache_key less the process-lifetime id() components.  The port
+        has no discard-time filter: its slot holds the JAX package's
+        default, INT_MAX."""
+        return (
+            type(self.protocol).__name__,
+            repr(getattr(self.protocol, "params", None)),
+            str(self.latency),
+            self.n_nodes,
+            self.capacity,
+            self.wheel_rows,
+            self.wheel_slots,
+            self.overflow_capacity,
+            INT_MAX,  # msg_discard_time
+            self.telemetry.key() if self.telemetry is not None else None,
+            self.faults.key() if self.faults is not None else None,
+            self.batched_jumps,
+            self.lanes.key(),
+            str(self.device),
+        )
 
     # -- partitions (Network.partition, Network.java:693-707) ----------------
     @staticmethod

@@ -53,6 +53,10 @@ class LanePlan:
     idx: torch.dtype  # msg_from / msg_to / ovf_from / ovf_to
     mtype: torch.dtype  # msg_type / ovf_type
 
+    def key(self) -> tuple:
+        """The JAX package's LanePlan.key(): the two dtype names."""
+        return (str(self.idx).replace("torch.", ""), str(self.mtype).replace("torch.", ""))
+
 
 def lane_plan(n_nodes: int, n_msg_types: int) -> LanePlan:
     """The engine's dtype plan for one (N, mtype-count) config (the JAX

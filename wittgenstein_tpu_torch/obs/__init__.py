@@ -9,8 +9,10 @@ packed batch's counters by replica row; a `TimeSeriesStore` keeps the
 history the Supervisor feeds at each chunk boundary, and an
 `InvariantSentinel` checks the store invariant, drops and headroom
 against the capacity table there.  Host-side only: simulation state is
-the same with all of it armed.  The JAX package's SLO burn-rate engine
-belongs with the serving fleet and is not ported yet.
+the same with all of it armed.  An `SLOEngine` evaluates declarative
+objectives (`SLOSpec`, `default_serve_specs`) over a TimeSeriesStore as
+multi-window burn rates and latches edge-triggered alerts; the serving
+scheduler and the sentinel fire through it.
 """
 
 from .attribution import batch_attribution, replica_rows
@@ -27,6 +29,12 @@ from .recorder import (
     read_events,
     reset_default_recorder,
 )
+from .slo import (
+    REGISTERED_SLOS,
+    SLOEngine,
+    SLOSpec,
+    default_serve_specs,
+)
 from .timeseries import TimeSeriesStore
 
 __all__ = [
@@ -41,6 +49,10 @@ __all__ = [
     "batch_attribution",
     "replica_rows",
     "TimeSeriesStore",
+    "REGISTERED_SLOS",
+    "SLOEngine",
+    "SLOSpec",
+    "default_serve_specs",
     "InvariantSentinel",
     "load_capacity_table",
     "KNOWN_KINDS",

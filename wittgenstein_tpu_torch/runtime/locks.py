@@ -3,10 +3,11 @@
 Every lock the port's host code constructs is named in `LOCK_HIERARCHY`,
 a total acquisition order (rank = position): a thread holding a lock may
 only acquire locks of strictly higher rank, so two code paths that keep
-the order cannot deadlock on these locks.  The port constructs only the
-flight recorder's two locks so far (`obs/recorder.py`); the rows keep
-the JAX package's names and relative order, so a rank means the same
-thing in both packages.
+the order cannot deadlock on these locks.  The port constructs the
+serving scheduler's three (`serve/scheduler.py`), the run cache's two
+(`parallel/replica_shard.py`) and the flight recorder's two
+(`obs/recorder.py`); the rows keep the JAX package's names and relative
+order, so a rank means the same thing in both packages.
 
 `TracedLock` is a `threading.Lock` wrapper.  Unarmed, an acquire is one
 module-flag read and the bare acquire.  Armed (`WITT_LOCK_TRACE=1` in
@@ -27,7 +28,7 @@ import threading
 import time
 from collections import deque
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 __all__ = [
     "LOCK_HIERARCHY",
@@ -38,6 +39,8 @@ __all__ = [
     "lock_trace_status",
     "make_lock",
     "reset_lock_trace",
+    "set_interleave",
+    "yield_point",
 ]
 
 
@@ -51,6 +54,26 @@ class LockSpec:
 
 # outermost (rank 0) to innermost
 LOCK_HIERARCHY: Tuple[LockSpec, ...] = (
+    LockSpec(
+        "serve.worker",
+        doc="lane thread spawn/restart bookkeeping (serve/scheduler.py)",
+    ),
+    LockSpec(
+        "serve.dispatch",
+        doc="batch claim + lane binding; device runs stay outside it",
+    ),
+    LockSpec(
+        "serve.family",
+        doc="per-family admission bookkeeping (serve/scheduler.py)",
+    ),
+    LockSpec(
+        "runcache.entry",
+        doc="run-cache entry map + counters (parallel/replica_shard.py)",
+    ),
+    LockSpec(
+        "runcache.compile",
+        doc="per-entry program registration (the double-checked guard)",
+    ),
     LockSpec(
         "obs.recorder_default",
         doc="process-default recorder singleton latch (obs/recorder.py)",
@@ -266,3 +289,23 @@ def lock_trace_status() -> dict:
         "waitP99S": round(p99, 6),
         "perLock": per_lock,
     }
+
+
+# -- deterministic interleaving hooks ----------------------------------------
+_interleave: Optional[Callable[[str], None]] = None
+
+
+def set_interleave(controller: Optional[Callable[[str], None]]) -> None:
+    """Install (or clear, with None) the interleaving controller: it is
+    called with the yield point's name from the thread that reached it,
+    and may block to impose a schedule."""
+    global _interleave
+    _interleave = controller
+
+
+def yield_point(name: str) -> None:
+    """A named scheduling hook: a no-op (one global read) unless a
+    controller is installed."""
+    c = _interleave
+    if c is not None:
+        c(name)

@@ -160,44 +160,59 @@ def _attr(name: str) -> str:
     return f"GetAttrKey(name={name!r})"
 
 
-def _leaf_sig(keys: tuple, leaf, word: bool = False) -> str:
-    shape = getattr(leaf, "shape", ())
-    if isinstance(shape, torch.Size):
-        shape = tuple(shape)
+def _dtype_name(leaf, word: bool = False) -> str:
+    """A leaf's dtype as numpy names it, uint32 for the JAX package's
+    words."""
     dtype = getattr(leaf, "dtype", type(leaf).__name__)
     if isinstance(dtype, torch.dtype):
         dtype = str(dtype).replace("torch.", "")
         if word and dtype == "int32":
             dtype = "uint32"  # the JAX package's words
-    return f"{_render_path(keys)}:{shape}:{dtype}"
+    return str(dtype)
 
 
-def _signature(tree, keys: tuple = ()) -> List[str]:
-    """`path:shape:dtype` of every leaf, in the JAX package's flattening
-    order and rendering (engine/checkpoint._host_leaves' order), from the
-    leaves' metadata only: no leaf's values are read."""
+def iter_leaves(tree, keys: tuple = ()):
+    """(path, leaf, word) of every leaf, in the JAX package's flattening
+    order (engine/checkpoint._host_leaves' order), with the path rendered
+    as the JAX package's `str(path)` and `word` True for the leaves it
+    carries as uint32 words."""
     if isinstance(tree, EthPowState):
         # a pytree class without key names in the JAX package
-        return [_leaf_sig(keys + (f"FlattenedIndexKey(key={i})",), v)
-                for i, v in enumerate(tree)]
-    if isinstance(tree, SimState):
+        for i, v in enumerate(tree):
+            yield _render_path(keys + (f"FlattenedIndexKey(key={i})",)), v, False
+    elif isinstance(tree, SimState):
         protocol = protocol_of(tree.proto)
-        out = []
         for f in SimState._fields:
             v = getattr(tree, f)
             if f == "proto":
-                out += [_leaf_sig(keys + (_attr(f), f"DictKey(key={k!r})"), v[k],
-                                  is_word_leaf(protocol, k)) for k in sorted(v)]
+                for k in sorted(v):
+                    path = keys + (_attr(f), f"DictKey(key={k!r})")
+                    yield _render_path(path), v[k], is_word_leaf(protocol, k)
             else:
-                out += _signature(v, keys + (_attr(f),))
-        return out
-    if isinstance(tree, dict):
-        return [s for k in sorted(tree) for s in _signature(tree[k], keys + (f"DictKey(key={k!r})",))]
-    if hasattr(tree, "_fields"):  # a NamedTuple side-car
-        return [s for f in tree._fields for s in _signature(getattr(tree, f), keys + (_attr(f),))]
-    if isinstance(tree, (tuple, list)):
-        return [s for i, v in enumerate(tree) for s in _signature(v, keys + (f"SequenceKey(idx={i})",))]
-    return [_leaf_sig(keys, tree)]
+                yield from iter_leaves(v, keys + (_attr(f),))
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from iter_leaves(tree[k], keys + (f"DictKey(key={k!r})",))
+    elif hasattr(tree, "_fields"):  # a NamedTuple side-car
+        for f in tree._fields:
+            yield from iter_leaves(getattr(tree, f), keys + (_attr(f),))
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            yield from iter_leaves(v, keys + (f"SequenceKey(idx={i})",))
+    else:
+        yield _render_path(keys), tree, False
+
+
+def leaf_signature(tree) -> List[str]:
+    """`path:shape:dtype` of every leaf (`iter_leaves`), from the leaves'
+    metadata only: no leaf's values are read."""
+    out = []
+    for path, leaf, word in iter_leaves(tree):
+        shape = getattr(leaf, "shape", ())
+        if isinstance(shape, torch.Size):
+            shape = tuple(shape)
+        out.append(f"{path}:{shape}:{_dtype_name(leaf, word)}")
+    return out
 
 
 def stable_run_key(net: Any, template: Any, n_chunks: int, chunk_ms: int) -> str:
@@ -207,7 +222,7 @@ def stable_run_key(net: Any, template: Any, n_chunks: int, chunk_ms: int) -> str
     same key for the same run)."""
     proto = getattr(net, "protocol", net)
     digest = hashlib.blake2b(
-        "|".join(_signature(template)).encode(), digest_size=8
+        "|".join(leaf_signature(template)).encode(), digest_size=8
     ).hexdigest()
     return f"{type(proto).__name__}:{n_chunks}x{chunk_ms}ms:{digest}"
 

@@ -242,8 +242,11 @@ def run_fault_sweep(
     partial RunReport.  The checkpoints are the JAX package's files, so a
     sweep checkpointed by either package resumes in the other.
 
-    use_run_cache (the JAX package's cached compiled-program path) is
-    not ported: it raises."""
+    use_run_cache evaluates through the run cache
+    (parallel.replica_shard.sharded_run_stats): one cached entry per
+    (network, sim_ms) and one program per input geometry, so repeated
+    sweeps of one geometry (a search's generations) are cache hits that
+    `run_cache_info()` counts.  Its records equal the uncached path's."""
     if use_run_cache and stop_when_done:
         raise ValueError(
             "use_run_cache evaluates a fixed-horizon cached program; "
@@ -253,11 +256,6 @@ def run_fault_sweep(
         raise ValueError(
             "use_run_cache and checkpoint_dir are mutually exclusive "
             "(the resumable path runs chunked under the Supervisor)"
-        )
-    if use_run_cache:
-        raise NotImplementedError(
-            "use_run_cache needs parallel.replica_shard, which is not ported "
-            "(ROADMAP Queue A 16)"
         )
     if not plans:
         raise ValueError("run_fault_sweep needs at least one plan")
@@ -320,6 +318,10 @@ def run_fault_sweep(
                 report=report,
             )
         out = report.state
+    elif use_run_cache:
+        from ..parallel.replica_shard import sharded_run_stats
+
+        out, _ = sharded_run_stats(fnet, batched, sim_ms)
     else:
         out = fnet.run_ms_batched(batched, sim_ms, stop_when_done)
 

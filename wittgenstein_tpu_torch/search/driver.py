@@ -1,9 +1,10 @@
 """Resumable search driver: optimizer generations over run_fault_sweep.
 
-One generation = ONE `run_fault_sweep` call: the optimizer's whole
-population lowers to FaultState rows of a single `run_ms_batched` run at
-a fixed horizon (`stop_when_done=False`, the program the JAX package's
-cached path runs), so a generation is one batched run on the device.
+One generation = ONE `run_fault_sweep(use_run_cache=True)` call: the
+optimizer's whole population lowers to FaultState rows of a single
+cached program (parallel.replica_shard), so generations 2..G are pure
+run-cache hits (`run_cache_info()["compiles"]` is the witness: a
+program is the run cache's first call at a new input geometry).
 
 Durability rides the engine's checkpoint discipline: after every
 `tell`, the optimizer state (arrays in CheckpointManager's atomic
@@ -199,7 +200,7 @@ class SearchDriver:
             "search-resume", search=self.config.label, gen=self.generation
         )
 
-    # -- one generation = one batched sweep ----------------------------------
+    # -- one generation = one cached sweep -----------------------------------
     def _gen_seed0(self, gen: int) -> int:
         # disjoint seed blocks per generation, pure in (config, gen)
         rows = self.config.population * self.config.replicas_per_plan
@@ -218,7 +219,7 @@ class SearchDriver:
         t0 = time.perf_counter()
         _, records = run_fault_sweep(
             self.net, self.state, plans, cfg.sim_ms,
-            replicas_per_plan=rpp, seed0=seed0, stop_when_done=False,
+            replicas_per_plan=rpp, seed0=seed0, use_run_cache=True,
         )
         eval_s = time.perf_counter() - t0
         scores = score_records(records, cfg.objective, cfg.sim_ms)
