@@ -108,9 +108,20 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 name, and the profiler's own seconds.  Every profile window
                 below sits inside its run, and its ticks or iterations are
                 left out of the run's wall time.  Every window is read
-                from the raw Kineto events (`_window_events`), which gives
-                the numbers torch's own processing gives at a fraction of
-                its cost; the p2pflood window holds the two readings equal
+                from the raw Kineto events (`tools.profiling.
+                window_events`), which gives the numbers torch's own
+                processing gives at a fraction of its cost; the p2pflood
+                window holds the two readings equal
+  6b. profiling the profiling package on the flagship phase's run:
+                hbm_report of the unreplicated flagship_params(4096) state
+                (the modelled bytes a replica x 16 beside the run's measured
+                peak), budget_from_parts from its ticks to done and ms a
+                tick, written to wittgenstein_tpu_torch/data/BUDGET.json
+                with the card's name and power limit, and
+                ablation_matrix(4096, n_replicas=4) over ABL_LEVERS (warm-up
+                ABL_WARM_MS ms, ABL_SCANS steps a pass, ABL_REPEATS timed
+                passes) with its lever report printed on the lines before
+                its row; the popcount family launches
   7. sweep      BASELINE config 3 through the port's run_sweep: Handel at
                 4096 nodes under default_params, byzantineSuicide at 0,
                 5, 10, 15, 20 and 25% (none at 0%), R = 4 a point,
@@ -161,6 +172,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 to 3000.0 and its pinned baselines, popcount_words,
                 popcount_binop and cand_score launched, ms and launches a
                 tick
+  7d. beside the sweep pool, this process runs telemetry (5b) and the
+                PingPong phases (8-10b) meanwhile
   8. pingpong   the event-driven main path: make_pingpong(1000), R=4096,
                 run_ms_batched(700, stop_when_done) on the time wheel and
                 the consensus-jump loop; every witness must count 1000
@@ -188,6 +201,19 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 run_ms_occupancy (per-tick steps, no jumps) on replicas
                 0-255 for 100 ms on the card and on replicas 0-3 on the
                 CPU, whose marks and states must be equal
+ 10c. throughput BASELINE config 1's PingPong built as make_pingpong
+                builds it, with every message THRU_SIZE (4096) bytes,
+                BatchedNetwork(throughput=MathisNetworkThroughput(latency,
+                64 KiB), msg_discard_time=THRU_DISCARD_MS (120)), R = 1024,
+                700 ms with stop_when_done on the 512-row wheel: the discard
+                time filters sends of every replica and keeps others,
+                nothing drops, replica 0 equals the JAX package's seed-0 run
+                (THRU_R0, its state digest among the numbers), and the
+                occupancy kernels launch
+      From throughput on (10c-26) the phases read no earlier phase's states
+      (attack_env only the flagship's done_at) and run in LATER_POOL (3)
+      worker processes at once, longest first, their lines printed when
+      each ends; ethpow runs in this process meanwhile
  11. dfinity    make_dfinity(max_heights=64), R=256, 15000 ms: nothing may
                 drop, every replica's head height (its highest notarized
                 block) reaches 4, and pack_occupied must have launched
@@ -313,8 +339,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 attack_profile is ticks 200-209 inside the run
  26b. durable   scripts/durable_smoke.py's proof on the flagship, in three
                 child processes of this script (`--durable-child`) run
-                one after another on a thread, beside the phases from
-                pingpong on: make_handel(flagship_params(4096),
+                one after another on a thread, beside the later phases
+                (10c-26): make_handel(flagship_params(4096),
                 telemetry=TELE_CFG) through run_fault_sweep over a
                 control plan and a crash plan (10% of the nodes down from
                 100 ms, back at 300), R = 2, 400 ms.  The reference runs it
@@ -368,10 +394,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 ms and launches a tick or iteration at each width, sims/s,
                 peak GB and the run-cache counters
  27. phase_seconds  each phase's wall seconds (profiles and checks included;
-                telemetry and pingpong_tele among them; `beside` is the
-                wait for the durable and serve thread after the last
-                phase, `durable_beside` and `serve_beside` their own
-                seconds)
+                telemetry and pingpong_tele among them, run beside the
+                sweep pool; `sweep` the wait for the pool after them;
+                `later` the pool of the later phases, each one's own
+                seconds as `<phase>_later`; `beside` the wait for the
+                durable and serve thread after them, `durable_beside` and
+                `serve_beside` their own seconds)
  28. launches_by_path  each path's launch count of every form
  29. kernels    one line listing every ported kernel with its numbers
 
@@ -384,9 +412,7 @@ from __future__ import annotations
 import atexit
 import contextlib
 import dataclasses
-import gc
 import hashlib
-import itertools
 import json
 import multiprocessing
 import os
@@ -398,12 +424,16 @@ import sys
 import tempfile
 import threading
 import time
-from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from wittgenstein_tpu_torch.core.registries import builder_name
+from wittgenstein_tpu_torch.core.node import Node, build_node_columns
+from wittgenstein_tpu_torch.core.registries import (
+    builder_name,
+    registry_network_latencies,
+    registry_node_builders,
+)
 from wittgenstein_tpu_torch.engine import BatchedNetwork, map_state, replicate_state
 from wittgenstein_tpu_torch.engine.checkpoint import CheckpointManager, _host_leaves, save_state
 from wittgenstein_tpu_torch.faults import FaultConfig, FaultPlan, lower_plans
@@ -433,7 +463,7 @@ from wittgenstein_tpu_torch.protocols.p2phandel import P2PHandelParameters
 from wittgenstein_tpu_torch.protocols.p2phandel_batched import make_p2phandel
 from wittgenstein_tpu_torch.protocols.paxos import PaxosParameters
 from wittgenstein_tpu_torch.protocols.paxos_batched import make_paxos
-from wittgenstein_tpu_torch.protocols.pingpong_batched import make_pingpong
+from wittgenstein_tpu_torch.protocols.pingpong_batched import BatchedPingPong, make_pingpong
 from wittgenstein_tpu_torch.protocols.sanfermin import SanFerminSignatureParameters
 from wittgenstein_tpu_torch.protocols.sanfermin_batched import make_sanfermin
 from wittgenstein_tpu_torch.protocols.avalanche_batched import make_slush, make_snowflake
@@ -474,9 +504,20 @@ from wittgenstein_tpu_torch.scenarios.regressions import (
     verify_regression,
 )
 from wittgenstein_tpu_torch.search import SearchConfig, SearchDriver, optimize_env_policy
+from wittgenstein_tpu_torch.core.throughput import MathisNetworkThroughput
+from wittgenstein_tpu_torch.profiling import (
+    ablation_matrix,
+    budget_from_parts,
+    format_lever_report,
+    hbm_report,
+    lever_report,
+)
 from wittgenstein_tpu_torch.serve import BatchScheduler, JobState
+from wittgenstein_tpu_torch.serve.scheduler import state_digest
 from wittgenstein_tpu_torch.telemetry import TelemetryConfig
 from wittgenstein_tpu_torch.tools.csv_formatter import CSVFormatter
+from wittgenstein_tpu_torch.tools.profiling import window_events
+from wittgenstein_tpu_torch.utils.javarand import JavaRandom
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak (NVIDIA data sheet, at 700 W)
 INT_OPS_PER_S = 67e12  # 32-bit rate outside the tensor cores (same sheet's fp32)
@@ -693,6 +734,29 @@ TELE_REPLICAS = 4  # the telemetry phase: the flagship's replicas 0-3 (host-boun
 OCC_REPLICAS = 256  # pingpong_tele's occupancy probe: a slice of the run
 INT32_MAX = 2**31 - 1
 OCC_MS = 100
+# the throughput phase: BASELINE config 1's PingPong under the Mathis
+# model on the network's own latency model, every message 4096 bytes; the
+# first hop's median delay is ~104 ms, so a 120-ms discard time drops
+# about 40% of the sends and keeps the rest
+THRU_REPLICAS = 1024
+THRU_SIZE = 4096
+THRU_WINDOW = 64 * 1024
+THRU_DISCARD_MS = 120
+# the JAX package's seed-0 run of the throughput phase
+# (scripts/torch_r0_reference.py throughput)
+THRU_R0 = {"msg_discard_time": 120, "pongs": 608, "msg_sent": 1622, "msg_received": 1230,
+           "bytes_sent": 6643712, "pending": 0, "discarded": 392, "time": 700,
+           "digest": "f75e34559bcb94d579eec247ae755d4e"}
+# the profiling phase: the ablation matrix on the flagship, R = 4, with a
+# short warm-up and few timed passes, so the phase stays near 40 s
+ABL_LEVERS = ["base", "channel_depth_8", "boundary_view_off", "pre_r5", "wheel",
+              "score_cache_on", "score_cache_off", "telemetry_on", "faults_on"]
+ABL_REPLICAS = 4
+ABL_WARM_MS = 20
+ABL_SCANS = 4
+ABL_REPEATS = 3
+BUDGET_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "wittgenstein_tpu_torch",
+                           "data", "BUDGET.json")
 ETH_MINERS = 10
 ETH_B_MAX = 512
 ETH_REPLICAS = 1024  # cut from 4096
@@ -813,8 +877,17 @@ def serve_jobs(pp_nodes: int = PP_NODES, pp_ms: int = PP_MS,
     ]
 
 
+# a later-pool worker collects its lines here for the main process to
+# print, so lines of workers never interleave
+_EMITTED = None
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj)
+    if _EMITTED is None:
+        print(line, flush=True)
+    else:
+        _EMITTED.append(line)
 
 
 def device_info() -> dict:
@@ -2244,26 +2317,41 @@ def pool_task(task: tuple) -> dict:
     return sweep_point(task)
 
 
-def sweeps(points: bool, cities: bool, search: bool = False) -> dict:
+class Sweeps:
     """The `sweep`, `cities` and `search` phases in one pool of SWEEP_POOL
-    worker processes: each group of BASELINE config 3's sweep (one per
-    Byzantine fraction: a fraction changes the threshold, a traced
-    parameter, so run_sweep runs six groups of SWEEP_REPLICAS rows) and
-    the cities run hold one core each on the host, and the card serves
-    them in turn; the search's two tasks (the reference campaign with its
-    pin's replay, and the Handel pin's replay) come last and take the
-    slots that the 0% group and the cities run free.  Every worker is
-    joined or terminated when the phase ends."""
-    tasks = ([("sweep", i) for i in reversed(range(len(SWEEP_FRACTIONS)))] if points else [])
-    tasks += [("cities", 0)] if cities else []
-    # the Handel replay, the longer task, takes the first slot that frees
-    tasks += [("search", "handel"), ("search", "campaign")] if search else []
-    t0 = time.perf_counter()
-    with multiprocessing.get_context("spawn").Pool(min(SWEEP_POOL, len(tasks))) as pool:
-        outs = pool.map(pool_task, tasks, chunksize=1)
-        pool.close()
-        pool.join()
-    elapsed = time.perf_counter() - t0
+    worker processes, started by the constructor and collected by
+    `finish()`, so the main process runs other phases meanwhile: each group
+    of BASELINE config 3's sweep (one per Byzantine fraction: a fraction
+    changes the threshold, a traced parameter, so run_sweep runs six groups
+    of SWEEP_REPLICAS rows) and the cities run hold one core each on the
+    host, and the card serves them in turn; the search's two tasks (the
+    reference campaign with its pin's replay, and the Handel pin's replay)
+    come last and take the slots that the 0% group and the cities run
+    free.  Every worker is joined or terminated when the phase ends."""
+
+    def __init__(self, points: bool, cities: bool, search: bool = False):
+        self.points, self.cities, self.search = points, cities, search
+        tasks = ([("sweep", i) for i in reversed(range(len(SWEEP_FRACTIONS)))] if points else [])
+        tasks += [("cities", 0)] if cities else []
+        # the Handel replay, the longer task, takes the first slot that frees
+        tasks += [("search", "handel"), ("search", "campaign")] if search else []
+        self.t0 = time.perf_counter()
+        self.pool = multiprocessing.get_context("spawn").Pool(min(SWEEP_POOL, len(tasks)))
+        self.outs = self.pool.map_async(pool_task, tasks, chunksize=1)
+
+    def finish(self) -> dict:
+        try:
+            outs = self.outs.get()
+            self.pool.close()
+            self.pool.join()
+        finally:
+            self.pool.terminate()
+        return _sweep_results(outs, time.perf_counter() - self.t0, self.points, self.cities,
+                              self.search)
+
+
+def _sweep_results(outs: list, elapsed: float, points: bool, cities: bool,
+                   search: bool) -> dict:
     res = {}
     if points:
         res["sweep"] = _sweep_checks([o for o in outs if o["what"] == "sweep"], elapsed)
@@ -2991,6 +3079,150 @@ def pingpong() -> dict:
     return out
 
 
+class SizedPingPong(BatchedPingPong):
+    """PingPong whose every message is THRU_SIZE bytes."""
+
+    def msg_size(self, mtype: int) -> int:
+        return THRU_SIZE
+
+
+def thru_network(device=None):
+    """The throughput phase's network as make_pingpong builds config 1's
+    (the default builder's nodes from JavaRandom(0), the default latency
+    model, capacity 2 N + 64, the 512-row wheel), with the protocol's
+    messages at THRU_SIZE bytes and BatchedNetwork(throughput=
+    MathisNetworkThroughput(latency, THRU_WINDOW), msg_discard_time=
+    THRU_DISCARD_MS), so the initial pings go through both too; (net,
+    single-replica state)."""
+    nb = registry_node_builders.get_by_name(None)
+    latency = registry_network_latencies.get_by_name(None)
+    rd = JavaRandom(0)
+    cols = build_node_columns([Node(rd, nb) for _ in range(PP_NODES)])
+    proto = SizedPingPong(PP_NODES)
+    net = BatchedNetwork(proto, latency, PP_NODES, capacity=2 * PP_NODES + 64,
+                         msg_discard_time=THRU_DISCARD_MS,
+                         throughput=MathisNetworkThroughput(latency, THRU_WINDOW), device=device)
+    return net, net.init_state(cols, seed=0, proto=proto.proto_init(PP_NODES, device=net.device))
+
+
+def thru_replica0(net, states) -> dict:
+    """Replica 0 of a throughput run: the network's discard time, the
+    pongs, traffic, the sends the discard time filtered (every send not
+    received and not pending: the run has no down node and no partition),
+    and the state digest."""
+    row = map_state(lambda a: a[0], states)
+    sent, received = int(row.msg_sent.sum()), int(row.msg_received.sum())
+    pending = int(row.msg_valid.sum()) + int(row.ovf_valid.sum())
+    return {"msg_discard_time": int(net.msg_discard_time),
+            "pongs": int(row.proto["pong"][0]), "msg_sent": sent, "msg_received": received,
+            "bytes_sent": int(row.bytes_sent.sum()), "pending": pending,
+            "discarded": sent - received - pending, "time": int(row.time),
+            "digest": state_digest(row)}
+
+
+def throughput() -> dict:
+    """BASELINE config 1's PingPong (PP_NODES nodes, the default distance
+    model) with every message THRU_SIZE bytes under the Mathis model and
+    THRU_DISCARD_MS, R = THRU_REPLICAS, run_ms_batched(PP_MS,
+    stop_when_done=True) on the 512-row wheel: the discard time filters
+    sends in every replica and keeps others, nothing drops, replica 0
+    equals the JAX package's seed-0 run (THRU_R0), and the occupancy
+    kernels launch."""
+    t_build = time.perf_counter()
+    net, state = thru_network()
+    states = replicate_state(state, THRU_REPLICAS)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_build
+    states, wall, launches = _timed_run(net, states, PP_MS, True)
+    pongs = states.proto["pong"][:, 0].cpu().numpy()
+    pending = states.msg_valid.sum((-2, -1)) + states.ovf_valid.sum(-1)
+    discarded = (states.msg_sent.sum(-1) - states.msg_received.sum(-1) - pending).cpu().numpy()
+    r0 = thru_replica0(net, states)
+    out = {"phase": "throughput", "nodes": PP_NODES, "ms": PP_MS, "build_s": build_s,
+           "msg_size": THRU_SIZE, "window_bytes": THRU_WINDOW,
+           "msg_discard_time": THRU_DISCARD_MS, **_loop_numbers(net, THRU_REPLICAS, wall, launches),
+           "pongs_min": int(pongs.min()), "pongs_max": int(pongs.max()),
+           "pongs_mean": float(pongs.mean()), "discarded_min": int(discarded.min()),
+           "discarded_total": int(discarded.sum()), "dropped": int(states.dropped.sum()),
+           "replica0": r0}
+    emit(out)
+    if out["dropped"]:
+        raise AssertionError(f"throughput: {out['dropped']} messages dropped")
+    if not (discarded > 0).all() or not (pongs > 0).all() or (pongs >= PP_NODES).any():
+        raise AssertionError("throughput: the discard time must filter some sends of every "
+                             f"replica and keep others (pongs {pongs.min()}..{pongs.max()}, "
+                             f"discarded from {discarded.min()})")
+    _check_replica0("throughput", r0, THRU_R0)
+    for name in ("pack_occupied", "lowest_set_bit", "popcount_words"):
+        if launches[name] <= 0:
+            raise AssertionError(f"throughput: {name} kernel never launched")
+    return out
+
+
+def profiling(flag, info) -> dict:
+    """The profiling package on the flagship at full width, from the
+    flagship phase's run (`flag`): the memory model of the unreplicated
+    state (hbm_report) beside that run's measured peak at R =
+    FLAGSHIP_REPLICAS, the budget from its ticks to done and ms a tick
+    (budget_from_parts, written to the package's data/BUDGET.json with the
+    card's name and power limit), and the ablation matrix over ABL_LEVERS
+    at R = ABL_REPLICAS with its lever report on a line before its row."""
+    dev = {"name": info["kind"], "power_limit": info["nvidia_smi"].split(",")[-1].strip()}
+    _, state = make_handel(flagship_params(FLAGSHIP_NODES))
+    peak = flag["max_memory_allocated"]
+    hbm = hbm_report(state, memory={"live_bytes": peak // FLAGSHIP_REPLICAS})
+    del state
+    modeled = hbm["model"]["bytes_per_replica"]
+    measured = {"tick_us": flag["ms_per_tick"] * 1e3, "ticks": flag["ticks"],
+                "replicas": FLAGSHIP_REPLICAS, "peak_bytes": peak, "device": dev}
+    budget = budget_from_parts(flag["ticks"], hbm, measured=measured,
+                               config={"node_count": FLAGSHIP_NODES, "protocol": "Handel",
+                                       "params": "flagship_params(4096)", "score_cache": True})
+    budget["recorded"] = time.strftime("%Y-%m-%d", time.gmtime())
+    budget["device"] = dev
+    budget["source"] = "chip_smoke.py, phases flagship and profiling"
+    os.makedirs(os.path.dirname(BUDGET_FILE), exist_ok=True)
+    with open(BUDGET_FILE, "w") as f:
+        json.dump(budget, f, indent=1)
+        f.write("\n")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    matrix = ablation_matrix(FLAGSHIP_NODES, n_replicas=ABL_REPLICAS, scans=ABL_SCANS,
+                             repeats=ABL_REPEATS, warm_ms=ABL_WARM_MS, levers=ABL_LEVERS)
+    abl_s = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    # each lever: the warm-up ticks, then scan_phase_seconds' build, warm-up
+    # and timed passes of ABL_SCANS steps
+    ticks = len(matrix["configs"]) * (ABL_WARM_MS + ABL_SCANS * (2 + ABL_REPEATS))
+    report = lever_report(matrix)
+    print(format_lever_report(report), flush=True)
+    out = {"phase": "profiling", "device": dev,
+           "modeled_bytes_per_replica": modeled,
+           "modeled_bytes_x_replicas": modeled * FLAGSHIP_REPLICAS,
+           "flagship_peak_bytes": peak,
+           "peak_over_modeled": peak / (modeled * FLAGSHIP_REPLICAS),
+           "replicas_per_chip": hbm["model"]["replicas"], "hbm_gib": hbm["model"]["hbm_gib"],
+           "top_leaves": hbm["top_leaves"][:4],
+           "required_tick_us": budget["required_tick_us"],
+           "headroom_factor": budget.get("headroom_factor"),
+           "ablation_s": abl_s, "ablation_ticks": ticks, "launches": launches,
+           "launches_per_tick": {k: v / ticks for k, v in launches.items()},
+           "levers": {name: c["tick_us"] for name, c in matrix["configs"].items()},
+           "lever_std_us": {name: c["std_us"] for name, c in matrix["configs"].items()}}
+    emit(out)
+    emit({"phase": "budget", **budget})
+    if set(matrix["configs"]) != set(ABL_LEVERS):
+        raise AssertionError(f"profiling: levers {sorted(matrix['configs'])}")
+    for name in ("popcount_words", "popcount_binop", "cand_score"):
+        if launches[name] <= 0:
+            raise AssertionError(f"profiling: {name} kernel never launched")
+    if not 0 < budget["required_tick_us"] or not hbm["model"]["replicas"] > FLAGSHIP_REPLICAS:
+        raise AssertionError(f"profiling: the budget is not sane: {budget['required_tick_us']} "
+                             f"us a tick, {hbm['model']['replicas']} replicas")
+    return out
+
+
 def occupancy_probe() -> dict:
     """run_ms_occupancy, per-tick steps without jumps, on the first
     OCC_REPLICAS replicas of the PingPong run for OCC_MS ms on the card,
@@ -3087,158 +3319,13 @@ def dfinity() -> dict:
     return out
 
 
-class _Kern(NamedTuple):
-    """A device event of a profile window: its name and device us."""
-
-    name: str
-    device_time: float
-
-
-class _CpuEv:
-    """A CPU event of a profile window, as torch's processing nests it."""
-
-    __slots__ = ("name", "start", "end", "thread", "async_", "kernels", "children", "parent",
-                 "total")
-
-    def __init__(self, name, start, end, thread, async_):
-        self.name, self.start, self.end, self.thread = name, start, end, thread
-        self.async_, self.kernels, self.children, self.parent = async_, [], [], None
-        self.total = None
-
-    def device_total(self) -> float:
-        """device_time_total: own kernels, then the children's, summed as
-        torch sums them."""
-        if self.total is None:
-            self.total = (0 if self.async_ else sum(self.kernels)
-                          + sum(ch.device_total() for ch in self.children))
-        return self.total
-
-
-def _window_events(prof):
-    """A profile window's device events (`_Kern`, in torch's event order)
-    and each aten op's [calls, self device us] by name, in first-seen
-    order: what prof.events() and prof.key_averages() give — the same
-    filtered names, kernels linked to the op that launched them, the same
-    nesting per thread, the same merge of a lone same-name child into its
-    parent, the same float sums in the same order — read from the raw
-    Kineto events without building torch's per-event Python objects,
-    whose processing took 164.8 s of a 753-s run of this script (H100
-    80GB HBM3 at 700 W).  The p2pflood window holds the two readings
-    equal in every run."""
-    from torch.autograd import DeviceType
-    from torch.autograd.profiler_util import _filter_name
-
-    res = prof.profiler.kineto_results
-    t0 = res.trace_start_ns()
-    names = {}
-
-    def rename(raw: str) -> str:  # torch's StringTable: demangled
-        if raw not in names:
-            names[raw] = torch._C._demangle(raw) if len(raw) > 1 else raw
-        return names[raw]
-
-    evs, frontend, linked = [], [], {}
-    for k in res.events():
-        raw = k.name()
-        if _filter_name(raw) or getattr(k, "is_hidden_event", lambda: False)():
-            continue
-        start, end = (k.start_ns() - t0) / 1000, (k.end_ns() - t0) / 1000
-        dev = k.device_type()
-        if dev == DeviceType.CPU:
-            ev = _CpuEv(rename(raw), start, end, k.start_thread_id(),
-                        k.is_async() or k.start_thread_id() != k.end_thread_id())
-        elif dev == DeviceType.CUDA:
-            ev = _Kern(rename(raw), end - start)
-        else:
-            ev = None
-        evs.append((start, -end, ev))
-        corr = k.linked_correlation_id()
-        if corr > 0:
-            linked.setdefault(corr, []).append(ev)
-        elif corr == 0 and isinstance(ev, _CpuEv):
-            frontend.append((k.correlation_id(), ev))
-    for cid, ev in frontend:
-        if not ev.async_:
-            for f in linked.get(cid, ()):
-                if isinstance(f, _Kern):
-                    ev.kernels.append(f.device_time)
-                elif isinstance(f, _CpuEv):
-                    f.thread = ev.thread
-    evs.sort(key=lambda e: (e[0], e[1]))
-    order = [e[2] for e in evs if e[2] is not None]
-    cpu = [e for e in order if isinstance(e, _CpuEv)]
-    # nesting: per thread, by (start, -end), a stack of open parents
-    for _, group in itertools.groupby(sorted((e for e in cpu if not e.async_),
-                                             key=lambda e: e.thread), key=lambda e: e.thread):
-        stack = []
-        for ev in group:
-            while stack:
-                parent = stack[-1]
-                if ev.start >= parent.end or ev.end > parent.end:
-                    stack.pop()
-                else:
-                    parent.children.append(ev)
-                    ev.parent = parent
-                    break
-            stack.append(ev)
-    # a lone child of its parent's name merges into it (kernels lifted)
-    while True:
-        gone = set()
-        for i, ev in enumerate(cpu):
-            p = ev.parent
-            if p is not None and p.name == ev.name and len(p.children) == 1:
-                p.children, p.kernels = ev.children, ev.kernels
-                for ch in ev.children:
-                    ch.parent = p
-                gone.add(i)
-        if not gone:
-            break
-        cpu = [ev for i, ev in enumerate(cpu) if i not in gone]
-    ops = {}
-    for ev in cpu:
-        if ev.name.startswith("aten::"):
-            row = ops.setdefault(ev.name, [0, 0])
-            row[0] += 1
-            if not ev.async_:
-                row[1] += ev.device_total() - sum(ch.device_total() for ch in ev.children)
-    return [e for e in order if isinstance(e, _Kern)], ops
-
-
-def _torch_window_events(prof):
-    """The same reading through torch's own processing (prof.events(),
-    prof.key_averages()), for the cross-check."""
-    from torch.autograd import DeviceType
-
-    kern = [_Kern(e.name, e.device_time) for e in prof.events()
-            if e.device_type == DeviceType.CUDA]
-    ops = {e.key: [e.count, e.self_device_time_total] for e in prof.key_averages()
-           if e.key.startswith("aten::")}
-    return kern, ops
-
-
-@contextlib.contextmanager
-def _gc_paused():
-    """A window's reading builds ~10^5 small objects, and the cyclic
-    collector's passes over them took half of the reading's time; it
-    runs again when the reading is done."""
-    was = gc.isenabled()
-    gc.disable()
-    try:
-        yield
-    finally:
-        if was:
-            gc.enable()
-
-
 def _check_reading(prof, phase: str) -> float:
     """Hold a window's raw-event reading equal to torch's own; returns the
     seconds torch's reading took."""
     t0 = time.perf_counter()
-    with _gc_paused():
-        want = _torch_window_events(prof)
+    want = window_events(prof, through_torch=True)
     torch_s = time.perf_counter() - t0
-    with _gc_paused():
-        kern, ops = _window_events(prof)
+    kern, ops = window_events(prof)
     if (kern, ops) != want:
         bad = sorted(k for k in set(ops) | set(want[1]) if ops.get(k) != want[1].get(k))
         raise AssertionError(f"{phase}: the raw-event reading differs from torch's: "
@@ -3249,8 +3336,7 @@ def _check_reading(prof, phase: str) -> float:
 def _window_reading(prof, phase: str):
     """(kern, the aten ops sorted by self device time, most first) of a
     window."""
-    with _gc_paused():
-        kern, ops = _window_events(prof)
+    kern, ops = window_events(prof)
     if not kern:
         raise AssertionError(f"{phase}: the profiler recorded no device activity")
     top = sorted(ops.items(), key=lambda kv: kv[1][1], reverse=True)
@@ -4199,10 +4285,87 @@ def paxos() -> dict:
     return out
 
 
-PHASES = ("kernels", "identity", "flagship", "telemetry", "sweep", "cities", "search", "pingpong",
-          "faults_pingpong", "pingpong_tele", "dfinity", "gsf", "p2phandel", "handeleth2",
-          "sanfermin", "casper", "paxos", "slush", "snowflake", "p2pflood", "optimistic",
-          "cappos", "enr", "ethpow", "miner_env", "attack_env", "durable", "serve")
+# the phases from throughput on read no earlier phase's states (attack_env
+# only the flagship's done_at), so they run in LATER_POOL worker processes
+# at once, longest first, while the main process runs ethpow (whose exp
+# check has a worker of its own); the host's cores serve the loops'
+# launches, and the card serves the processes in turn
+LATER_POOL = 3
+LATER_PHASES = ("attack_env", "dfinity", "snowflake", "gsf", "casper", "sanfermin", "slush",
+                "handeleth2", "paxos", "miner_env", "cappos", "p2phandel", "enr", "optimistic",
+                "p2pflood", "throughput")
+LATER_RUNS = {
+    "throughput": lambda done: throughput(), "dfinity": lambda done: dfinity(),
+    "gsf": lambda done: gsf(), "p2phandel": lambda done: p2phandel(),
+    "handeleth2": lambda done: handeleth2(), "sanfermin": lambda done: sanfermin(),
+    "casper": lambda done: casper(), "paxos": lambda done: paxos(),
+    "slush": lambda done: avalanche("slush"), "snowflake": lambda done: avalanche("snowflake"),
+    "p2pflood": lambda done: p2pflood(), "optimistic": lambda done: optimistic(),
+    "cappos": lambda done: cappos(), "enr": lambda done: enr(),
+    "miner_env": lambda done: miner_env(), "attack_env": attack_env,
+}
+
+
+def _host_only(out):
+    """A phase's result without its device tensors and private keys, to
+    cross a process boundary."""
+    if isinstance(out, dict):
+        return {k: _host_only(v) for k, v in out.items()
+                if not str(k).startswith("_") and not isinstance(v, torch.Tensor)}
+    if isinstance(out, (list, tuple)):
+        return type(out)(_host_only(v) for v in out if not isinstance(v, torch.Tensor))
+    return out
+
+
+def later_task(name: str, flag_done) -> tuple:
+    """One later phase in a pool worker: (name, its result or None, its
+    emitted lines, seconds, the traceback if it failed)."""
+    global _EMITTED
+    _EMITTED = []
+    t0 = time.perf_counter()
+    try:
+        with torch.inference_mode():
+            out = _host_only(LATER_RUNS[name](flag_done))
+        return name, out, _EMITTED, time.perf_counter() - t0, None
+    except Exception:  # noqa: BLE001 — raised again by the main process
+        import traceback
+
+        return name, None, _EMITTED, time.perf_counter() - t0, traceback.format_exc()
+
+
+def later_phases(names: list, flag_done, run_ethpow: bool, seconds: dict) -> dict:
+    """The later phases: `names` in LATER_POOL workers, ethpow in this
+    process meanwhile; each phase's lines printed when it ends, in the
+    order given; a failed phase fails the script after its lines."""
+    runs = {}
+    pool = multiprocessing.get_context("spawn").Pool(min(LATER_POOL, max(1, len(names))),
+                                                     initializer=_one_thread) if names else None
+    try:
+        pending = [pool.apply_async(later_task, (name, flag_done)) for name in names]
+        if run_ethpow:
+            t0 = time.perf_counter()
+            runs["ethpow"] = ethpow()
+            seconds["ethpow"] = time.perf_counter() - t0
+        for res in pending:
+            name, out, lines, secs, failure = res.get()
+            for line in lines:
+                print(line, flush=True)
+            seconds[name] = secs
+            if failure is not None:
+                raise AssertionError(f"{name} failed in its worker:\n{failure}")
+            runs[name] = out
+    finally:
+        if pool is not None:
+            pool.terminate()
+            pool.join()
+    return runs
+
+
+PHASES = ("kernels", "identity", "flagship", "profiling", "telemetry", "sweep", "cities", "search",
+          "pingpong", "faults_pingpong", "pingpong_tele", "throughput", "dfinity", "gsf",
+          "p2phandel", "handeleth2", "sanfermin", "casper", "paxos", "slush", "snowflake",
+          "p2pflood", "optimistic", "cappos", "enr", "ethpow", "miner_env", "attack_env",
+          "durable", "serve")
 
 
 @torch.inference_mode()
@@ -4217,7 +4380,7 @@ def main(argv) -> int:
         return only is None or name in only
 
     info = device_info()
-    t_last, seconds = [time.perf_counter()], {}
+    t_last, seconds, later_seconds = [time.perf_counter()], {}, {}
 
     def lap(name: str) -> None:
         now = time.perf_counter()
@@ -4241,26 +4404,20 @@ def main(argv) -> int:
         runs["flagship"] = flag = flagship()
         flag_done = flag.pop("_done_at")
         lap("flagship")
+    if want("profiling"):
+        if flag is None:
+            raise SystemExit("chip_smoke: the profiling phase reads the flagship phase's run")
+        runs["profiling"] = profiling(flag, info)
+        lap("profiling")
+    # the sweep pool's processes run while this one runs the telemetry and
+    # the PingPong phases
+    pool = (Sweeps(want("sweep"), want("cities"), want("search"))
+            if want("sweep") or want("cities") or want("search") else None)
     if want("telemetry"):
         runs["telemetry"] = telemetry(flag)
         lap("telemetry")
     if flag is not None:
         del flag["_states"]
-    if want("sweep") or want("cities") or want("search"):
-        runs.update(sweeps(want("sweep"), want("cities"), want("search")))
-        if "sweep" in runs:
-            # the profiled group's eligibility rows at its window's first tick
-            real = [(a.cuda(), b.cuda()) for a, b in runs["sweep"].pop("_real")]
-            lowest_rows, andnot_rows = lowest_bucket_times(real), andnot_bucket_times(real)
-            emit({"phase": "byz_rows", "lowest_set_bit": lowest_rows,
-                  "lowest_set_bit_andnot": andnot_rows})
-        lap("sweep")
-    # the durable phase's three processes, then the serve phase's one, run
-    # one after another beside the phases from pingpong on, and are joined
-    # after the last
-    beside = [(name, run) for name, run in (("durable", durable), ("serve", serve))
-              if want(name)]
-    chain = _Beside(beside).start() if beside else None
     pp_states = None
     if want("pingpong"):
         runs["pingpong"] = pp = pingpong()
@@ -4273,29 +4430,29 @@ def main(argv) -> int:
         runs["pingpong_tele"] = pingpong_tele(runs.get("pingpong"), pp_states)
         lap("pingpong_tele")
     del pp_states
-    if want("dfinity"):
-        runs["dfinity"] = dfinity()
-        lap("dfinity")
-    if want("gsf"):
-        runs["gsf"] = gsf()
-        lap("gsf")
-    if want("p2phandel"):
-        runs["p2phandel"] = p2phandel()
-        lap("p2phandel")
-    for path, run in (("handeleth2", handeleth2), ("sanfermin", sanfermin), ("casper", casper),
-                      ("paxos", paxos), ("slush", lambda: avalanche("slush")),
-                      ("snowflake", lambda: avalanche("snowflake")), ("p2pflood", p2pflood),
-                      ("optimistic", optimistic), ("cappos", cappos), ("enr", enr),
-                      ("ethpow", ethpow), ("miner_env", miner_env),
-                      ("attack_env", lambda: attack_env(flag_done))):
-        if want(path):
-            runs[path] = run()
-            lap(path)
+    if pool is not None:
+        runs.update(pool.finish())
+        if "sweep" in runs:
+            # the profiled group's eligibility rows at its window's first tick
+            real = [(a.cuda(), b.cuda()) for a, b in runs["sweep"].pop("_real")]
+            lowest_rows, andnot_rows = lowest_bucket_times(real), andnot_bucket_times(real)
+            emit({"phase": "byz_rows", "lowest_set_bit": lowest_rows,
+                  "lowest_set_bit_andnot": andnot_rows})
+        lap("sweep")
+    # the durable phase's three processes, then the serve phase's one, run
+    # one after another beside the later phases, and are joined after them
+    beside = [(name, run) for name, run in (("durable", durable), ("serve", serve))
+              if want(name)]
+    chain = _Beside(beside).start() if beside else None
+    runs.update(later_phases([name for name in LATER_PHASES if want(name)], flag_done,
+                             want("ethpow"), later_seconds))
+    lap("later")
     if chain is not None:
         runs.update(chain.join())
         lap("beside")  # the wait for the chain after the last phase
     emit({"phase": "phase_seconds", **seconds, "total": sum(seconds.values()),
-          **{f"{name}_beside": s for name, s in (chain.seconds if chain else {}).items()}})
+          **{f"{name}_beside": s for name, s in (chain.seconds if chain else {}).items()},
+          **{f"{name}_later": s for name, s in later_seconds.items()}})
     # every path's launches of every form, from that path's own run
     emit({"phase": "launches_by_path",
           **{path: out["launches"] for path, out in runs.items()}})

@@ -7,6 +7,7 @@ on the CPU.
     JAX_PLATFORMS=cpu python3 scripts/torch_r0_reference.py p2phandel --ms 1000 --out p.json
     JAX_PLATFORMS=cpu python3 scripts/torch_r0_reference.py durable --ms 400 --out d.json
     JAX_PLATFORMS=cpu python3 scripts/torch_r0_reference.py serve --out s.json
+    JAX_PLATFORMS=cpu python3 scripts/torch_r0_reference.py throughput --ms 700 --out t.json
 
 `byzantine`: point i of BASELINE config 3's sweep, (0.0, 0.05, 0.10,
 0.15, 0.20, 0.25) Byzantine at 4096 nodes under `default_params`, is
@@ -38,7 +39,11 @@ read by chip_smoke's `durable_replica0` (DURABLE_R0), with its record.
 config 1's PingPong under each fault op, the two flagship Handel jobs,
 the preemptor) through the JAX package's `BatchScheduler.run_singleton`,
 Handel built with the score cache on (the card's default): the state
-digest of each (SERVE_R0; `--ms` is unused; ~10 min).  Imports the JAX
+digest of each (SERVE_R0; `--ms` is unused; ~10 min).  `throughput`:
+the throughput phase's PingPong (1000 nodes, 4096-byte messages, the
+Mathis model, the discard time), seed 0, `--ms` (700) ms with
+stop_when_done, read by chip_smoke's `thru_replica0` (THRU_R0, its state
+digest among the numbers).  Imports the JAX
 package, and for these readers the port's interop.
 """
 
@@ -214,6 +219,44 @@ def durable(ms: int) -> dict:
             "record": records[0]}
 
 
+def throughput(ms: int) -> dict:
+    """Replica 0 of the throughput phase: BASELINE config 1's PingPong,
+    built as make_pingpong builds it, with every message THRU_SIZE bytes
+    under the JAX package's Mathis model and THRU_DISCARD_MS, seed 0, `--ms` (700) ms with stop_when_done, read by
+    chip_smoke's `thru_replica0` (THRU_R0)."""
+    import chip_smoke as cs
+    from wittgenstein_tpu.core.node import Node, build_node_columns
+    from wittgenstein_tpu.core.registries import (
+        registry_network_latencies,
+        registry_node_builders,
+    )
+    from wittgenstein_tpu.core.throughput import MathisNetworkThroughput
+    from wittgenstein_tpu.engine import BatchedNetwork, replicate_state
+    from wittgenstein_tpu.protocols.pingpong_batched import BatchedPingPong
+    from wittgenstein_tpu.utils.javarand import JavaRandom
+    from wittgenstein_tpu_torch.interop import state_from_numpy
+
+    class Sized(BatchedPingPong):
+        def msg_size(self, mtype: int) -> int:
+            return cs.THRU_SIZE
+
+    n = cs.PP_NODES
+    nb = registry_node_builders.get_by_name(None)
+    latency = registry_network_latencies.get_by_name(None)
+    rd = JavaRandom(0)
+    cols = build_node_columns([Node(rd, nb) for _ in range(n)])
+    proto = Sized(n)
+    net = BatchedNetwork(proto, latency, n, capacity=2 * n + 64,
+                         msg_discard_time=cs.THRU_DISCARD_MS,
+                         throughput=MathisNetworkThroughput(latency, cs.THRU_WINDOW))
+    state = net.init_state(cols, seed=0, proto=proto.proto_init(n))
+    s = net.run_ms_batched(replicate_state(state, 1), ms, stop_when_done=True)
+    leaves = {k: v if isinstance(v, tuple) else np.asarray(v)
+              for k, v in s._asdict().items() if k != "proto"}
+    leaves["proto"] = {k: np.asarray(v) for k, v in s.proto.items()}
+    return {"ms": ms, "replica0": cs.thru_replica0(net, state_from_numpy(leaves, "cpu"))}
+
+
 def serve(ms: int) -> dict:
     """The JAX package's run_singleton digest of every serve-phase job."""
     del ms
@@ -244,8 +287,9 @@ def serve(ms: int) -> dict:
     return {"serve_r0": out}
 
 
-READERS = {"durable": durable, "serve": serve, "ethpow": ethpow, "p2phandel": p2phandel, "sanfermin": sanfermin,
-           "handeleth2": handeleth2, "cappos": cappos}
+READERS = {"durable": durable, "serve": serve, "throughput": throughput, "ethpow": ethpow,
+           "p2phandel": p2phandel, "sanfermin": sanfermin, "handeleth2": handeleth2,
+           "cappos": cappos}
 
 
 def main(argv=None) -> int:

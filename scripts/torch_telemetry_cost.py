@@ -13,7 +13,7 @@ instrumented flagship on replicas 0-3 for exactly the plain run's
 executed ticks without the stop test (chip_smoke's telemetry phase),
 twice; then what a
 10-tick torch.profiler window of the plain flagship costs to close and
-to read (chip_smoke's `_window_events`, with the garbage collector on
+to read (`tools.profiling.window_events`, with the garbage collector on
 and paused).  With --cpu-aten it counts, on the CPU, the aten calls a
 tick of flagship_params(256) x 4 (20 ticks after 100) and an iteration
 of PingPong 1000 x 4 (200 ms after 100), with and without telemetry.
@@ -62,8 +62,9 @@ def flagship_run(replicas: int, tele: bool, ticks=None) -> dict:
 
 def window_cost() -> dict:
     """Close and read a 10-tick profile window of the plain flagship."""
-    import chip_smoke
     from torch.profiler import ProfilerActivity, profile
+
+    from wittgenstein_tpu_torch.tools.profiling import _read_raw, window_events
 
     net, state = make_handel(flagship_params(4096))
     states = net.run_ms_batched(replicate_state(state, 16), 100)
@@ -77,10 +78,9 @@ def window_cost() -> dict:
     t1 = time.perf_counter()
     n = len(prof.profiler.kineto_results.events())
     t2 = time.perf_counter()
-    chip_smoke._window_events(prof)
+    _read_raw(prof)  # with the garbage collector on
     t3 = time.perf_counter()
-    with chip_smoke._gc_paused():
-        chip_smoke._window_events(prof)
+    window_events(prof)
     t4 = time.perf_counter()
     return {"window_events": n, "close_s": t1 - t0, "events_s": t2 - t1,
             "read_s": t3 - t2, "read_gc_paused_s": t4 - t3}

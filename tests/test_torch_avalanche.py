@@ -49,6 +49,13 @@ def _one_torch_thread():
     torch.set_num_threads(old)
 
 
+@pytest.fixture(autouse=True)
+def _inference_mode():
+    """The port's runs without autograd bookkeeping, as on the card."""
+    with torch.inference_mode():
+        yield
+
+
 def _both(mode, params_of=None):
     jmake, tmake, main = MAIN[mode]
     jp, tp = PARAMS[mode]

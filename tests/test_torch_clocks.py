@@ -40,6 +40,13 @@ def _one_torch_thread():
     torch.set_num_threads(old)
 
 
+@pytest.fixture(autouse=True)
+def _inference_mode():
+    """The port's runs without autograd bookkeeping, as on the card."""
+    with torch.inference_mode():
+        yield
+
+
 def mixed_clocks(jnet, jstate, clocks=CLOCKS, base_ms=0):
     """A JAX batch whose replica r (seed r) is at clocks[r]: replicas of a
     common start run base_ms, then those with clock c advanced c ms

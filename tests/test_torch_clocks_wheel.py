@@ -35,6 +35,13 @@ def _one_torch_thread():
     torch.set_num_threads(old)
 
 
+@pytest.fixture(autouse=True)
+def _inference_mode():
+    """The port's runs without autograd bookkeeping, as on the card."""
+    with torch.inference_mode():
+        yield
+
+
 def p2phandel_wheel():
     if not _BUILT:
         jnet, jstate = jmake(JParams(**P2P))

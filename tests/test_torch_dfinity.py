@@ -35,6 +35,13 @@ def _one_torch_thread():
     torch.set_num_threads(old)
 
 
+@pytest.fixture(autouse=True)
+def _inference_mode():
+    """The port's runs without autograd bookkeeping, as on the card."""
+    with torch.inference_mode():
+        yield
+
+
 def jax_numpy(state) -> dict:
     d = jax.tree_util.tree_map(np.asarray, state)._asdict()
     d["proto"] = dict(d["proto"])

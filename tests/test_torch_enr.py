@@ -61,6 +61,13 @@ def _one_torch_thread():
     torch.set_num_threads(old)
 
 
+@pytest.fixture(autouse=True)
+def _inference_mode():
+    """The port's runs without autograd bookkeeping, as on the card."""
+    with torch.inference_mode():
+        yield
+
+
 def _both(kw, horizon):
     jnet, jstate = jmake(JParams(**kw), horizon_ms=horizon, capacity=1024)
     tnet, tstate = tmake(TParams(**kw), horizon_ms=horizon, capacity=1024, device="cpu")

@@ -62,6 +62,13 @@ def _one_torch_thread():
     torch.set_num_threads(old)
 
 
+@pytest.fixture(autouse=True)
+def _inference_mode():
+    """The port's runs without autograd bookkeeping, as on the card."""
+    with torch.inference_mode():
+        yield
+
+
 def jax_numpy(state) -> dict:
     return {f.name: np.asarray(getattr(state, f.name)) for f in dataclasses.fields(state)}
 

@@ -40,6 +40,13 @@ def _one_torch_thread():
     torch.set_num_threads(old)
 
 
+@pytest.fixture(autouse=True)
+def _inference_mode():
+    """The port's runs without autograd bookkeeping, as on the card."""
+    with torch.inference_mode():
+        yield
+
+
 def _policy(obs: dict, step: int) -> np.ndarray:
     """Release everything when behind, else withhold; every seventh step
     one more than the withheld count (Java's restamp case)."""

@@ -111,6 +111,13 @@ def _one_torch_thread():
     torch.set_num_threads(old)
 
 
+@pytest.fixture(autouse=True)
+def _inference_mode():
+    """The port's runs without autograd bookkeeping, as on the card."""
+    with torch.inference_mode():
+        yield
+
+
 @pytest.mark.parametrize("lane", list(PP_LANES))
 def test_lower_and_digest_match_jax(lane):
     want = PP_LANES[lane](JPlan).lower(PP_NODES, 3)

@@ -31,6 +31,13 @@ def _one_torch_thread():
     torch.set_num_threads(old)
 
 
+@pytest.fixture(autouse=True)
+def _inference_mode():
+    """The port's runs without autograd bookkeeping, as on the card."""
+    with torch.inference_mode():
+        yield
+
+
 def _assert_same_obs(want: dict, got: dict, tag: str) -> None:
     assert set(want) == set(got), tag
     for k in want:

@@ -41,6 +41,13 @@ def _one_torch_thread():
     torch.set_num_threads(old)
 
 
+@pytest.fixture(autouse=True)
+def _inference_mode():
+    """The port's runs without autograd bookkeeping, as on the card."""
+    with torch.inference_mode():
+        yield
+
+
 def jax_numpy(state) -> dict:
     d = jax.tree_util.tree_map(np.asarray, state)._asdict()
     d["proto"] = dict(d["proto"])
@@ -98,12 +105,13 @@ def test_host_roles_match(kw):
 @pytest.fixture(scope="module")
 def gated32():
     """32 nodes x 2 replicas on the beat-gated path: the JAX states at 0,
-    300 and 700 ms."""
+    300 and 700 ms, run in 100-ms chunks (one JAX program)."""
     jnet, js, tnet, ts = _pair(node_count=32)
     js = jreplicate(js, REPLICAS)
     snaps = [jax_numpy(js)]
-    for ms in (300, 400):
-        js = jnet.run_ms_batched(js, ms)
+    for chunks in (3, 4):
+        for _ in range(chunks):
+            js = jnet.run_ms_batched(js, 100)
         snaps.append(jax_numpy(js))
     return tnet, ts, snaps
 
@@ -161,14 +169,25 @@ def test_variants_match(kw, gated):
     assert_same_state(jax_numpy(js), state_to_numpy(ts), str(kw))
 
 
+LATE_CHUNK = 110
+
+
 @pytest.fixture(scope="module")
-def late16():
-    """16 nodes x 2 replicas: the JAX states at 17990 ms and 18100 ms,
+def pair16():
+    """The 16-node pair whose JAX side runs one program, LATE_CHUNK ms."""
+    return _pair(node_count=16)
+
+
+@pytest.fixture(scope="module")
+def late16(pair16):
+    """16 nodes x 2 replicas: the JAX states at 17930 ms and 18040 ms,
     across the stop branch of _start_stop (first at 18001 ms)."""
-    jnet, js, tnet, _ = _pair(node_count=16)
-    js = jnet.run_ms_batched(jreplicate(js, REPLICAS), 17990)
+    jnet, js, tnet, _ = pair16
+    js = jreplicate(js, REPLICAS)
+    for _ in range(17930 // LATE_CHUNK):
+        js = jnet.run_ms_batched(js, LATE_CHUNK)
     before = jax_numpy(js)
-    after = jax_numpy(jnet.run_ms_batched(js, 110))
+    after = jax_numpy(jnet.run_ms_batched(js, LATE_CHUNK))
     return tnet, before, after
 
 
@@ -177,8 +196,9 @@ def test_stop_branch_handover_matches(late16):
     in it, adding to agg_done and contrib_total."""
     tnet, before, after = late16
     ts = state_from_numpy(before, "cpu")
-    ts = tnet.run_ms_batched(ts, 110)
-    assert_same_state(after, state_to_numpy(ts), "18100 ms")
+    ts = tnet.run_ms_batched(ts, LATE_CHUNK)
+    assert_same_state(after, state_to_numpy(ts), "18040 ms")
+    assert set(np.unique(before["proto"]["height"]).tolist()) == {1001, 1002, 1003}
     p = after["proto"]
     assert set(np.unique(p["height"]).tolist()) == {1002, 1003, 1004}
     assert p["agg_done"].sum() == 32 and p["contrib_total"].sum() == 512
@@ -284,7 +304,7 @@ def test_unsigned_scatter_max_matches_jax():
     assert np.array_equal(got.numpy().view(np.uint32), np.maximum(a, b))
 
 
-def test_popcount_sites_call_their_forms(monkeypatch):
+def test_popcount_sites_call_their_forms(monkeypatch, pair16):
     """Each popcount site of the port's HandelEth2 reaches a kernel form:
     `_select`'s score popcount_words and popcount_binop "and"/"or" with
     the node rows broadcast over K (never formed), `_commit`'s merge
@@ -299,9 +319,9 @@ def test_popcount_sites_call_their_forms(monkeypatch):
             return _real(*a, **kw)
 
         monkeypatch.setattr(teth2, name, spy)
-    jnet, js, tnet, ts = _pair(node_count=16)
-    js = jnet.run_ms_batched(jreplicate(js, REPLICAS), 120)
-    ts = tnet.run_ms_batched(treplicate(ts, REPLICAS), 120)
+    jnet, js, tnet, ts = pair16
+    js = jnet.run_ms_batched(jreplicate(js, REPLICAS), LATE_CHUNK)
+    ts = tnet.run_ms_batched(treplicate(ts, REPLICAS), LATE_CHUNK)
     assert_same_state(jax_numpy(js), state_to_numpy(ts), "spied")
     k, nl, nw = 8, 5, 1
     ops = {(nm, op) for nm, op, _ in calls}

@@ -156,10 +156,14 @@ def test_unported_engine_options_raise():
     ):
         with pytest.raises(exc):
             BatchedNetwork(p, lat, 64, device="cpu", **kw)
-    # the wheel, the consensus-jump switch and the telemetry side-car are
-    # ported
+    # the wheel, the consensus-jump switch, the telemetry side-car and the
+    # throughput and discard-time options are ported
     BatchedNetwork(proto, lat, 64, device="cpu", wheel_rows=512, batched_jumps=True)
     BatchedNetwork(proto, lat, 64, device="cpu", telemetry=TelemetryConfig(snapshots=4))
+    from wittgenstein_tpu_torch.core.throughput import MathisNetworkThroughput
+
+    BatchedNetwork(proto, lat, 64, device="cpu", msg_discard_time=500,
+                   throughput=MathisNetworkThroughput(lat, 1 << 16))
 
 
 def test_telemetry_entry_points_default_to_cuda(monkeypatch):
@@ -263,7 +267,7 @@ def test_sweep_entry_points_default_to_cuda(monkeypatch, tmp_path):
     assert names == {"scenarios/__init__.py", "scenarios/sweep.py",
                      "scenarios/handel_scenarios.py", "scenarios/regressions.py",
                      "tools/__init__.py", "tools/latency_csv.py", "tools/csv_formatter.py",
-                     "tools/graph.py", "tools/fault_sweep.py"}
+                     "tools/graph.py", "tools/fault_sweep.py", "tools/profiling.py"}
 
 
 def test_search_entry_points_default_to_cuda(monkeypatch, tmp_path):
@@ -320,3 +324,36 @@ def test_serving_entry_points_default_to_cuda(monkeypatch):
     assert names == {"serve/__init__.py", "serve/jobs.py", "serve/metrics.py",
                      "serve/scheduler.py", "parallel/__init__.py",
                      "parallel/device_groups.py", "parallel/replica_shard.py"}
+
+
+def test_profiling_entry_points_default_to_cuda(monkeypatch):
+    """The ablation matrix and a recorded call run on CUDA unless asked
+    for the CPU, and without a card the default raises; the memory model
+    sizes against the card only when the state lies on one; the
+    profiling, throughput and tool modules are among the sources held
+    free of JAX imports; the package surface exports the JAX package's
+    names where the port has the function."""
+    from wittgenstein_tpu_torch import ops, runtime, scenarios
+    from wittgenstein_tpu_torch.profiling import ablation_matrix, record_call, replicas_per_chip
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for run in (lambda: ablation_matrix(16, levers=["base"]),
+                lambda: record_call(lambda: None)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run()
+    _, state = make_handel(HandelParameters(node_count=16), device="cpu")
+    with pytest.raises(ValueError, match="pass hbm_gib"):
+        replicas_per_chip(state)
+    assert replicas_per_chip(state, hbm_gib=1.0)["replicas"] > 0
+    names = {str(p.relative_to(PKG)) for p in SOURCES
+             if p.parent.name == "profiling" or p.name in ("throughput.py", "profiling.py")}
+    assert names == {"profiling/__init__.py", "profiling/ablation.py", "profiling/budget.py",
+                     "profiling/hbm.py", "profiling/probe.py", "profiling/xla_cost.py",
+                     "core/throughput.py", "tools/profiling.py"}
+    assert {"verify_regression", "pin_regression", "load_regression", "list_regressions",
+            "check_regression_doc", "SCHEMA", "REGRESSIONS_DIR"} <= set(scenarios.__all__)
+    assert {"yield_point", "set_interleave", "YIELD_POINTS"} <= set(runtime.__all__)
+    assert set(ops.__all__) == {"popcount_words", "xor_shuffle", "block_mask",
+                                "level_block_mask"}
+    for mod in (scenarios, runtime, ops):
+        assert all(hasattr(mod, name) for name in mod.__all__), mod.__name__

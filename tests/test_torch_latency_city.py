@@ -8,7 +8,9 @@ The port keeps its own copy of the baked city matrix
 package's latencies: the vectorized forms over seeded [R, K] index
 tensors whose pairs include the same node, the same city, nodes outside
 the city index (city_idx -1, which JAX's gather reads as the last city)
-and the last city itself; the scalar forms over node pairs.
+and the last city itself; the scalar forms over node pairs, for all ten
+models of the registry (the AWS model over nodes of AWS cities), the
+distance, AWS and IC3 models at every delta.
 """
 
 import hashlib
@@ -39,6 +41,12 @@ CITY_MODELS = ["NetworkLatencyByCity", "NetworkLatencyByCityWJitter"]
 MODELS = CITY_MODELS + ["EthScanNetworkLatency", "measured"]
 N = 300
 CITIES = builder_name("CITIES", False, 0.2)
+AWS_CITIES = builder_name("AWS", False, 0.2)
+# the models whose scalar form is held at every delta of every pair
+EVERY_DELTA = ["NetworkLatencyByDistanceWJitter", "AwsRegionNetworkLatency",
+               "IC3NetworkLatency"]
+SCALAR_MODELS = MODELS + EVERY_DELTA + ["NetworkNoLatency", "NetworkFixedLatency(100)",
+                                        "NetworkUniformLatency(1000)"]
 
 
 def _model(lib, regs, name):
@@ -60,9 +68,9 @@ def test_baked_matrix_is_the_jax_packages():
         assert t.get_latency(a, b) == j.get_latency(a, b)
 
 
-def _populations(seed):
+def _populations(seed, builder=CITIES):
     jrd, trd = JRandom(seed), TRandom(seed)
-    jnb, tnb = jbuilders.get_by_name(CITIES), tbuilders.get_by_name(CITIES)
+    jnb, tnb = jbuilders.get_by_name(builder), tbuilders.get_by_name(builder)
     return [JNode(jrd, jnb) for _ in range(N)], [TNode(trd, tnb) for _ in range(N)]
 
 
@@ -127,19 +135,39 @@ def test_vectorized_forms_match(name):
         assert got.dtype == want.dtype == np.int32 and np.array_equal(got[r], want)
 
 
-@pytest.mark.parametrize("name", MODELS)
+@pytest.mark.parametrize("name", SCALAR_MODELS)
 def test_scalar_forms_match(name):
-    jn, tn = _populations(5)
+    jn, tn = _populations(5, AWS_CITIES if name == "AwsRegionNetworkLatency" else CITIES)
     jmodel, tmodel = _model(jlat, jlats, name), _model(tlat, tlats, name)
     rng = np.random.RandomState(1)
     pairs = [(i, i) for i in range(5)] + [tuple(p) for p in rng.randint(0, N, size=(400, 2))]
     city = [n.city_name for n in tn]
     pairs += [(i, j) for i in range(N) for j in range(i + 1, N) if city[i] == city[j]][:30]
     for i, j in pairs:
-        d = int(rng.randint(0, 100))
-        assert tmodel.get_extended_latency(tn[i], tn[j], d) == \
-            jmodel.get_extended_latency(jn[i], jn[j], d), (i, j, d)
-        assert tmodel.get_latency(tn[i], tn[j], d) == jmodel.get_latency(jn[i], jn[j], d)
+        deltas = range(100) if name in EVERY_DELTA else [int(rng.randint(0, 100))]
+        for d in deltas:
+            assert tmodel.get_extended_latency(tn[i], tn[j], d) == \
+                jmodel.get_extended_latency(jn[i], jn[j], d), (i, j, d)
+            assert tmodel.get_latency(tn[i], tn[j], d) == jmodel.get_latency(jn[i], jn[j], d)
+
+
+@pytest.mark.parametrize("name", ["NetworkLatencyByDistanceWJitter", "IC3NetworkLatency"])
+def test_default_builder_scalar_forms(name):
+    """The default builder's random positions: every pair of 40 nodes at
+    every delta; nodes 0 and 1 of JavaRandom(0) at delta 42 give 81 under
+    the distance model and 100 under IC3."""
+    jrd, trd = JRandom(0), TRandom(0)
+    jnb, tnb = jbuilders.get_by_name(None), tbuilders.get_by_name(None)
+    jn = [JNode(jrd, jnb) for _ in range(40)]
+    tn = [TNode(trd, tnb) for _ in range(40)]
+    jmodel, tmodel = jlats.get_by_name(name), tlats.get_by_name(name)
+    assert tmodel.get_latency(tn[0], tn[1], 42) == \
+        {"NetworkLatencyByDistanceWJitter": 81, "IC3NetworkLatency": 100}[name]
+    for i in range(40):
+        assert tn[i].dist(tn[(i + 7) % 40]) == jn[i].dist(jn[(i + 7) % 40])
+        for j in range(40):
+            for d in range(100):
+                assert tmodel.get_latency(tn[i], tn[j], d) == jmodel.get_latency(jn[i], jn[j], d)
 
 
 def test_default_city_and_bad_delta_raise():

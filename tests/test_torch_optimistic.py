@@ -44,6 +44,13 @@ def _one_torch_thread():
     torch.set_num_threads(old)
 
 
+@pytest.fixture(autouse=True)
+def _inference_mode():
+    """The port's runs without autograd bookkeeping, as on the card."""
+    with torch.inference_mode():
+        yield
+
+
 @pytest.mark.parametrize("pairing_time", [1, 10])
 def test_signatures_match(pairing_time):
     kw = dict(BASE, pairing_time=pairing_time)

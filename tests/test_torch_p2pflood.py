@@ -41,6 +41,13 @@ def _one_torch_thread():
     torch.set_num_threads(old)
 
 
+@pytest.fixture(autouse=True)
+def _inference_mode():
+    """The port's runs without autograd bookkeeping, as on the card."""
+    with torch.inference_mode():
+        yield
+
+
 @pytest.mark.parametrize("case", list(CASES))
 def test_flood_matches(case):
     kw = CASES[case]

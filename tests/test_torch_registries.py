@@ -30,6 +30,13 @@ def _one_torch_thread():
     torch.set_num_threads(old)
 
 
+@pytest.fixture(autouse=True)
+def _inference_mode():
+    """The port's runs without autograd bookkeeping, as on the card."""
+    with torch.inference_mode():
+        yield
+
+
 def test_entries_match():
     assert treg.names() == jreg.names() and len(treg.names()) == 17
     assert treg.modules() == jreg.modules()

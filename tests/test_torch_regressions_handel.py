@@ -27,6 +27,13 @@ def _torch_threads():
     torch.set_num_threads(old)
 
 
+@pytest.fixture(autouse=True)
+def _inference_mode():
+    """The port's runs without autograd bookkeeping, as on the card."""
+    with torch.inference_mode():
+        yield
+
+
 def test_pin_is_a_byte_copy():
     assert (treg.REGRESSIONS_DIR / NAME).read_bytes() == \
         (jreg.REGRESSIONS_DIR / NAME).read_bytes()

@@ -30,6 +30,13 @@ def _one_torch_thread():
     torch.set_num_threads(old)
 
 
+@pytest.fixture(autouse=True)
+def _inference_mode():
+    """The port's runs without autograd bookkeeping, as on the card."""
+    with torch.inference_mode():
+        yield
+
+
 def test_pins_are_byte_copies():
     assert [p.name for p in treg.list_regressions()] == [p.name for p in jreg.list_regressions()]
     for p in treg.list_regressions():

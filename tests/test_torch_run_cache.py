@@ -6,7 +6,8 @@ The same call sequence gives the JAX package's run_cache_info counts
 and sharded_run_stats gives the JAX package's five statistics on the
 same states.  The design differences are pinned: a program is the first
 call at a new input geometry, compile_seconds_total stays 0.0, there is
-no compile store, a program's summary holds `replicas` only, and a
+no compile store, a program's summary holds `replicas` and the cost
+and memory of its first call (no memory statistics on the CPU), and a
 layout or shard_replicas raises until mesh2d is ported.  The engine's
 stable_cache_key holds the JAX package's slots over the port's own
 fields, and the double-checked lock keeps a program a singleton under
@@ -120,8 +121,14 @@ def test_design_differences():
     assert info["store_hits"] == info["store_puts"] == 0
     assert set(info) == set(jrc.run_cache_info())
     metrics = trc.run_cache_metrics()
-    assert metrics["entries"] == [
-        {"protocol": "BatchedPingPong", "sim_ms": 20, "programs": [{"replicas": 2}]}]
+    (entry,) = metrics["entries"]
+    assert {k: entry[k] for k in ("protocol", "sim_ms")} == {
+        "protocol": "BatchedPingPong", "sim_ms": 20}
+    (prog,) = entry["programs"]
+    assert set(prog) == {"replicas", "cost", "memory"} and prog["replicas"] == 2
+    assert set(prog["cost"]) == {"wall_seconds", "hand_launches"}
+    assert prog["cost"]["wall_seconds"] > 0 and prog["cost"]["hand_launches"] == 0
+    assert prog["memory"] is None  # no allocator statistics on the CPU
     with pytest.raises(NotImplementedError, match="Queue A 16"):
         trc.sharded_run_stats(net, trep(s, 2), 20, layout=object())
     with pytest.raises(NotImplementedError, match="Queue A 16"):
@@ -130,17 +137,17 @@ def test_design_differences():
 
 
 def test_stable_cache_key_holds_jax_slots():
-    """Name, params, latency, store geometry, discard time, telemetry,
-    faults, batched_jumps and lanes: the JAX package's slots; the
-    device stands where the JAX package has its bitset backend."""
+    """Name, params, latency, store geometry, discard time, throughput,
+    telemetry, faults, batched_jumps and lanes: the JAX package's slots;
+    the device stands where the JAX package has its bitset backend."""
     jnet, js = jmake(40, telemetry=JTele(snapshots=8, snapshot_every_ms=5))
     tnet, ts = tmake(40, telemetry=TTele(snapshots=8, snapshot_every_ms=5), device="cpu")
     jnet, _ = jnet.with_faults(js, JFaultConfig())
     tnet, _ = tnet.with_faults(ts, TFaultConfig())
     jkey, tkey = jnet.stable_cache_key(), tnet.stable_cache_key()
-    assert tkey[:9] == jkey[:9]
-    assert tkey[9:13] == (jkey[11], jkey[12], jkey[15], jkey[16])
-    assert tkey[13] == "cpu"
+    assert tkey[:10] == jkey[:10]
+    assert tkey[10:14] == (jkey[11], jkey[12], jkey[15], jkey[16])
+    assert tkey[14] == "cpu"
     full = tnet.cache_key()
     assert full[2:4] == (id(tnet.protocol), id(tnet.latency))
     assert full[:2] + full[4:] == tkey

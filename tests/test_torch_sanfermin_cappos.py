@@ -40,6 +40,13 @@ def _one_torch_thread():
     torch.set_num_threads(old)
 
 
+@pytest.fixture(autouse=True)
+def _inference_mode():
+    """The port's runs without autograd bookkeeping, as on the card."""
+    with torch.inference_mode():
+        yield
+
+
 @pytest.mark.parametrize("candidates", [4, 50])
 def test_cappos_matches(candidates):
     kw = dict(node_count=64, threshold=32, candidate_count=candidates)

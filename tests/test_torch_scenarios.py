@@ -26,6 +26,13 @@ def _one_torch_thread():
     torch.set_num_threads(old)
 
 
+@pytest.fixture(autouse=True)
+def _inference_mode():
+    """The port's runs without autograd bookkeeping, as on the card."""
+    with torch.inference_mode():
+        yield
+
+
 def _configs(m, name, n):
     kw = {"dead": 0.2, "tor": 0.2} if name in m._DEAD_TOR else {}
     return [(c.label, c.value, dataclasses.asdict(c.params)) for c in m.SCENARIOS[name](n, **kw)]

@@ -41,6 +41,13 @@ def _one_torch_thread():
     torch.set_num_threads(old)
 
 
+@pytest.fixture(autouse=True)
+def _inference_mode():
+    """The port's runs without autograd bookkeeping, as on the card."""
+    with torch.inference_mode():
+        yield
+
+
 def _history(report):
     return [{k: v for k, v in row.items() if k != "eval_s"} for row in report["history"]]
 

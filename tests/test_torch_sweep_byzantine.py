@@ -25,6 +25,13 @@ def _one_torch_thread():
     torch.set_num_threads(old)
 
 
+@pytest.fixture(autouse=True)
+def _inference_mode():
+    """The port's runs without autograd bookkeeping, as on the card."""
+    with torch.inference_mode():
+        yield
+
+
 def test_byzantine_battery_matches():
     want = jsweep.run_sweep(jsc.byzantine_configs(32), replicas=2, sim_ms=900, seed0=3,
                             stop_when_done=True)

@@ -39,6 +39,13 @@ def _one_torch_thread():
     torch.set_num_threads(old)
 
 
+@pytest.fixture(autouse=True)
+def _inference_mode():
+    """The port's runs without autograd bookkeeping, as on the card."""
+    with torch.inference_mode():
+        yield
+
+
 def _build(wheel_rows, telemetry):
     jnet, js = jmake(JParams(**PARAMS), fuse_step=True, score_cache=True, wheel_rows=wheel_rows,
                      telemetry=JConfig(**CFG) if telemetry else None)

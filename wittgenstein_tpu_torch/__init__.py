@@ -36,7 +36,8 @@ find:
   core/       node populations (random, AWS-city and all-cities builders),
               geometry,
               latency models (distance + jitter, AWS regions, IC3,
-              fixed, uniform, none), registries
+              fixed, uniform, none), the Mathis throughput model,
+              registries
   engine/     SimState, BatchedNetwork (flat store and time wheel, lockstep
               and consensus-jump loops over per-replica clocks, the fault
               lanes and the telemetry counters at send, insert and
@@ -50,6 +51,8 @@ find:
   oracle/     the P2P overlay graph builder (host-side, no DES)
   parallel/   the run cache (one program per network, horizon and input
               geometry) and device groups
+  profiling/  the state-leaf memory model, the budget arithmetic, the
+              ablation matrix, the device record, per-call cost records
   serve/      the batch scheduler, its jobs and metrics
   protocols/  batched Handel and GSF on the bitset-aggregation base;
               P2PHandel, HandelEth2, SanFermin and SanFerminCappos,
@@ -59,8 +62,10 @@ find:
               event-driven on the flat store; ETHPoW on its own state
               and event loop, with the selfish-mining environment; the
               Handel attack environment on the fault lanes
+  tools/      the profiler window reader and trace helpers, CSV and
+              graph writers, the fault-sweep command line
   data/       the port's own copy of the city tables (names, positions,
-              populations)
+              populations), and the card's budget (BUDGET.json)
   interop.py  carry a JAX-package state into the port and back
 """
 

@@ -111,6 +111,11 @@ class NetworkLatencyByDistanceWJitter(NetworkLatency):
     EARTH_PERIMETER = 24_860
     POINT_VALUE = (EARTH_PERIMETER / 2) / MAX_DIST
 
+    def get_extended_latency(self, from_node, to_node, delta: int) -> int:
+        self._check_delta(delta)
+        fixed = self.POINT_VALUE * from_node.dist(to_node) * 0.022 + 4.862
+        return jint((fixed + float(JITTER_TABLE[delta])) / 2)
+
     # Exact-table trick: dist is an int <= MAX_DIST and delta < 100, so the
     # whole model is a [MAX_DIST+1, 100] int32 table computed in float64 on
     # the host; the kernel is a single gather, bit-exact with the scalar
@@ -192,6 +197,15 @@ class AwsRegionNetworkLatency(NetworkLatency):
     @staticmethod
     def cities():
         return sorted(AWS_REGION_PER_CITY)
+
+    def get_extended_latency(self, from_node, to_node, delta: int) -> int:
+        reg1 = AWS_REGION_PER_CITY.get(from_node.city_name)
+        reg2 = AWS_REGION_PER_CITY.get(to_node.city_name)
+        if reg1 is None or reg2 is None:
+            raise ValueError(f"{from_node} or {to_node} not in our aws cities list")
+        if reg1 == reg2:
+            return 1
+        return max(1, int(self.ONEWAY[reg1, reg2]) + jint(float(JITTER_TABLE[delta])))
 
     def ext_vec(self, static, from_idx, to_idx, delta):
         dev = static.x.device
@@ -352,6 +366,9 @@ class IC3NetworkLatency(NetworkLatency):
     S10 = 92
     SW = 350
     _TABLE = None
+
+    def get_extended_latency(self, from_node, to_node, delta: int) -> int:
+        return int(self._table()[from_node.dist(to_node)])
 
     @classmethod
     def _table(cls) -> np.ndarray:

@@ -13,6 +13,7 @@ struct-of-arrays columns the batched engine reads.
 from __future__ import annotations
 
 import copy as _copy
+import math
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -113,6 +114,12 @@ class Node:
         self.extra_latency = int(_aspect_value(ExtraLatencyAspect, nb.aspects, rd, 0))
         if self.speed_ratio <= 0:
             raise ValueError(f"speedRatio={self.speed_ratio}")
+
+    def dist(self, other: "Node") -> int:
+        """Toroidal map distance, truncated to an int (Node.java:278-282)."""
+        dx = min(abs(self.x - other.x), MAX_X - abs(self.x - other.x))
+        dy = min(abs(self.y - other.y), MAX_Y - abs(self.y - other.y))
+        return int(math.sqrt(dx * dx + dy * dy))
 
     def __repr__(self) -> str:
         return f"Node{{nodeId={self.node_id}}}"

@@ -218,6 +218,8 @@ class BatchedNetwork:
         latency: NetworkLatency,
         n_nodes: int,
         capacity: int = 1 << 14,
+        msg_discard_time: int = INT_MAX,
+        throughput=None,
         wheel_rows: Optional[int] = None,
         wheel_slots: Optional[int] = None,
         overflow_capacity: Optional[int] = None,
@@ -240,6 +242,12 @@ class BatchedNetwork:
         self.latency = latency
         self.n_nodes = n_nodes
         self.capacity = capacity
+        # a send whose latency is not below msg_discard_time is dropped at
+        # the send (Network.createMessageArrival); `throughput` (a
+        # core.throughput.MathisNetworkThroughput) makes the latency
+        # size-dependent
+        self.msg_discard_time = int(msg_discard_time)
+        self.throughput = throughput
         self.jump_stats = None  # set by each event-driven run
         self.batched_jumps = batched_jumps
         # the telemetry side-car's static switch: None runs no telemetry op
@@ -355,9 +363,7 @@ class BatchedNetwork:
         return static[:2] + (id(self.protocol), id(self.latency)) + static[2:]
 
     def stable_cache_key(self) -> tuple:
-        """cache_key less the process-lifetime id() components.  The port
-        has no discard-time filter: its slot holds the JAX package's
-        default, INT_MAX."""
+        """cache_key less the process-lifetime id() components."""
         return (
             type(self.protocol).__name__,
             repr(getattr(self.protocol, "params", None)),
@@ -367,7 +373,8 @@ class BatchedNetwork:
             self.wheel_rows,
             self.wheel_slots,
             self.overflow_capacity,
-            INT_MAX,  # msg_discard_time
+            self.msg_discard_time,
+            type(self.throughput).__name__ if self.throughput else None,
             self.telemetry.key() if self.telemetry is not None else None,
             self.faults.key() if self.faults is not None else None,
             self.batched_jumps,
@@ -439,11 +446,11 @@ class BatchedNetwork:
         """The createMessageArrival kernel shared by the generic store and
         protocol-specific message channels: ticks sender counters (even for
         dropped sends, Network.java:476-477), samples the latency model via
-        the counter RNG, applies the partition and down filters (the JAX
-        package's discard-time filter has no caller and is not ported).
-        mask is [R, K]; send_time an int or a tensor that broadcasts to
-        [R, K]; mtype an int or a per-row tensor; `t` the tick that sends
-        (the fault lanes' clock).  Returns (state, ok, arrival)."""
+        the counter RNG (through the throughput model when there is one),
+        applies the partition, down and discard-time filters.  mask is
+        [R, K]; send_time an int or a tensor that broadcasts to [R, K];
+        mtype an int or a per-row tensor; `t` the tick that sends (the
+        fault lanes' clock).  Returns (state, ok, arrival)."""
         state = state._replace(send_ctr=state.send_ctr + 1)
         return self._send_rows(state, mask, from_idx, to_idx, send_time, mtype,
                                state.send_ctr[:, None], t)
@@ -481,29 +488,37 @@ class BatchedNetwork:
         )
         delta = pseudo_delta(to_idx, seed)
         static = LatencyStatic(state.x, state.y, state.extra_latency, state.city_idx)
-        lat = vec_latency(self.latency, static, from_idx, to_idx, delta)
+        if self.throughput is not None:
+            # the size-dependent Mathis delay, priced off this network's
+            # latency model
+            lat = self.throughput.vec_delay(static, from_idx, to_idx, delta, size,
+                                            nl=self.latency)
+        else:
+            lat = vec_latency(self.latency, static, from_idx, to_idx, delta)
         arrival = (send_time + lat).to(torch.int32)
         pid_f = self.partition_id(state, take(state.x, from_idx))
         pid_t = self.partition_id(state, take(state.x, to_idx))
-        ok = (
+        routed = (
             mask
             & ~take(state.down, from_idx)
             & ~take(state.down, to_idx)
             & (pid_f == pid_t)
         )
+        # the default discard time, INT_MAX, filters nothing a model gives,
+        # so it costs no operation
+        ok = routed if self.msg_discard_time == INT_MAX else routed & (lat < self.msg_discard_time)
         if self.faults is not None:
             # fault choke point 1 (send): the sender counters ticked above;
             # crash/partition/silence/drop suppress rows, inflation and
-            # Byzantine delay rewrite the latency.  Each row's drop draw
-            # hashes its own emission's counter `ctr`.  The JAX package's
-            # discard-time filter (lat < INT_MAX by default) can fail only
-            # on a rewritten latency, so only that one is filtered
+            # Byzantine delay rewrite the latency, which the discard time
+            # then filters.  Each row's drop draw hashes its own emission's
+            # counter `ctr`
             fs = state.faults
             mrows = mtype if isinstance(mtype, torch.Tensor) else torch.full_like(from_idx, mtype)
             lat_f = inflate_latency(self.faults, fs, t, from_idx, mrows, lat)
             supp = send_suppress(self.faults, fs, t, from_idx, to_idx, mrows,
                                  state.seed[:, None], ctr, send_time)
-            ok_f = ok & ~supp & (lat_f < INT_MAX)
+            ok_f = routed & ~supp & (lat_f < self.msg_discard_time)
             state = state._replace(faults=fs._replace(
                 dropped_by_fault=count_by_type(fs.dropped_by_fault, ok & supp, mrows),
                 delayed_by_fault=count_by_type(fs.delayed_by_fault, ok_f & (lat_f != lat), mrows),

@@ -29,16 +29,16 @@ def _u32(x):
 
 
 def _mul32(x, c: int):
-    """(x * c) mod 2^32 for x in [0, 2^32) without leaving int64: split c
-    into 16-bit halves so no partial product reaches 2^63."""
-    lo = x * (c & 0xFFFF)
-    hi = (x * (c >> 16)) & 0xFFFF
-    return (lo + (hi << 16)) & M32
+    """(x * c) mod 2^32 for x in [0, 2^32): the int64 product wraps modulo
+    2^64 (two's complement, on the CPU and on CUDA), and 2^32 divides 2^64,
+    so its low 32 bits are the uint32 product's."""
+    return (x * c) & M32
 
 
 def to_i32(x):
-    """uint32 value held in int64 -> int32 tensor with the same bits."""
-    return (x - ((x >> 31) << 32)).to(torch.int32)
+    """uint32 value held in int64 -> int32 tensor with the same bits (the
+    narrowing cast keeps the low 32 bits, on the CPU and on CUDA)."""
+    return x.to(torch.int32)
 
 
 def pseudo_delta(dest_id, seed):
@@ -48,10 +48,9 @@ def pseudo_delta(dest_id, seed):
     a = a ^ ((a << 13) & M32)
     a = a ^ (a >> 17)  # logical: a holds the unsigned value
     a = a ^ ((a << 5) & M32)
-    x = a ^ _u32(seed)
-    x = x - ((x >> 31) << 32)  # back to the signed int32 value
+    x = to_i32(a ^ _u32(seed))  # back to the signed int32 value
     # lax.rem truncates toward zero, like torch.fmod
-    return torch.abs(torch.fmod(x, 100)).to(torch.int32)
+    return torch.abs(torch.fmod(x, 100))
 
 
 def _mix32(x):
@@ -74,8 +73,8 @@ def hash32_absorb(h, *parts):
     hash32_absorb(HASH32_START, *parts), so a prefix of parts shared by
     several hashes is absorbed once."""
     for p in parts:
-        p = _u32(p)
-        h = _mix32(h ^ ((p + _GOLDEN + ((h << 6) & M32) + (h >> 2)) & M32))
+        # the sum stays below 2^40, so one mask after it is the uint32 sum
+        h = _mix32(h ^ ((_u32(p) + _GOLDEN + (h << 6) + (h >> 2)) & M32))
     return h
 
 

@@ -17,8 +17,10 @@ counters with these design differences:
 - nothing is compiled, so `compile_seconds_total` stays 0.0;
 - the JAX package's durable compile store has no counterpart, so
   `store_hits` and `store_puts` stay 0;
-- a program's summary holds `replicas` only: the JAX package's XLA cost
-  and memory analyses have no eager counterpart;
+- a program's summary holds `replicas` and the cost and memory of its
+  first call (profiling.xla_cost: wall seconds, hand-written kernel
+  launches, the allocator's statistics on a card), where the JAX
+  package's holds its compiled program's XLA cost and memory analyses;
 - `layout=` and `shard_replicas` place states on a device mesh, which
   waits for the multi-device slice (ROADMAP Queue A 16, mesh2d): they
   raise.
@@ -36,6 +38,7 @@ from typing import Tuple
 import torch
 
 from ..engine.core import INT_MAX
+from ..profiling.xla_cost import compiled_cost_summary, record_call
 from ..runtime.locks import make_lock, yield_point
 from ..runtime.supervisor import iter_leaves
 
@@ -117,6 +120,7 @@ class _CachedRun:
 
     def __call__(self, states):
         sig = self._signature(states)
+        first = False
         if sig not in self._programs:
             # the race window: between this unlocked miss and the locked
             # recheck another thread can register the same program
@@ -130,7 +134,14 @@ class _CachedRun:
                         "replicas": next((s[0][0] for s in sig if s[0]), None)
                     }
                     self._programs[sig] = True
-        out = self.net.run_ms_batched(states, self.sim_ms)
+                    first = True
+        if first:
+            # a program's summary: the cost and memory of its first call
+            out, rec = record_call(self.net.run_ms_batched, states, self.sim_ms,
+                                   device=self.net.device)
+            self._summaries[sig].update(compiled_cost_summary(rec))
+        else:
+            out = self.net.run_ms_batched(states, self.sim_ms)
         return out, _run_stats(out)
 
     def summaries(self) -> list:

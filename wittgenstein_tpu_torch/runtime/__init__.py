@@ -1,7 +1,8 @@
 """Host runtime of the port: supervised chunked execution with
 checkpoint/resume, watchdogs, bounded retry and opt-in degradation
 (`Supervisor`), its error taxonomy (`classify`) and policies, and the
-lock registry with its tracer.
+lock registry with its tracer and the named yield points
+(`YIELD_POINTS`, `yield_point`, `set_interleave`).
 
 The JAX package's compile store has no counterpart: the port runs
 eagerly and has no compiled programs to persist; its restart cost is
@@ -29,11 +30,14 @@ from .locks import (
     LOCK_HIERARCHY,
     LOCK_RANKS,
     LockSpec,
+    YIELD_POINTS,
     TracedLock,
     arm_lock_trace,
     lock_trace_status,
     make_lock,
     reset_lock_trace,
+    set_interleave,
+    yield_point,
 )
 from .policy import (
     DegradePolicy,
@@ -55,10 +59,13 @@ __all__ = [
     "LOCK_RANKS",
     "LockSpec",
     "TracedLock",
+    "YIELD_POINTS",
     "arm_lock_trace",
     "lock_trace_status",
     "make_lock",
     "reset_lock_trace",
+    "set_interleave",
+    "yield_point",
     "DegradePolicy",
     "DeviceLostError",
     "DurableRunError",

@@ -35,6 +35,7 @@ __all__ = [
     "LOCK_RANKS",
     "LockSpec",
     "TracedLock",
+    "YIELD_POINTS",
     "arm_lock_trace",
     "lock_trace_status",
     "make_lock",
@@ -292,6 +293,18 @@ def lock_trace_status() -> dict:
 
 
 # -- deterministic interleaving hooks ----------------------------------------
+# every yield_point name in the package, in the JAX package's order; its
+# compile store's two points ("store.get", "store.put") have no
+# counterpart, as the port has no compile store
+YIELD_POINTS: Tuple[str, ...] = (
+    "runcache.lookup-miss",   # after an unlocked run-cache program miss
+    "runcache.compile",       # inside the program lock, recheck missed
+    "serve.claim",            # lane about to claim a batch
+    "serve.dispatch",         # batch about to execute on its lane
+    "serve.harvest",          # done-row harvest decision point
+    "serve.lane-failure",     # lane failover about to rebind
+)
+
 _interleave: Optional[Callable[[str], None]] = None
 
 

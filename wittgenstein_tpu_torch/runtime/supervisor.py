@@ -171,36 +171,43 @@ def _dtype_name(leaf, word: bool = False) -> str:
     return str(dtype)
 
 
-def iter_leaves(tree, keys: tuple = ()):
+def iter_leaves(tree):
     """(path, leaf, word) of every leaf, in the JAX package's flattening
     order (engine/checkpoint._host_leaves' order), with the path rendered
     as the JAX package's `str(path)` and `word` True for the leaves it
     carries as uint32 words."""
+    for keys, leaf, word in iter_keyed_leaves(tree):
+        yield _render_path(keys), leaf, word
+
+
+def iter_keyed_leaves(tree, keys: tuple = ()):
+    """iter_leaves with each path as its tuple of rendered keys
+    (`GetAttrKey(name='x')`, `DictKey(key='k')`, ...)."""
     if isinstance(tree, EthPowState):
         # a pytree class without key names in the JAX package
         for i, v in enumerate(tree):
-            yield _render_path(keys + (f"FlattenedIndexKey(key={i})",)), v, False
+            yield keys + (f"FlattenedIndexKey(key={i})",), v, False
     elif isinstance(tree, SimState):
         protocol = protocol_of(tree.proto)
         for f in SimState._fields:
             v = getattr(tree, f)
             if f == "proto":
                 for k in sorted(v):
-                    path = keys + (_attr(f), f"DictKey(key={k!r})")
-                    yield _render_path(path), v[k], is_word_leaf(protocol, k)
+                    yield keys + (_attr(f), f"DictKey(key={k!r})"), v[k], \
+                        is_word_leaf(protocol, k)
             else:
-                yield from iter_leaves(v, keys + (_attr(f),))
+                yield from iter_keyed_leaves(v, keys + (_attr(f),))
     elif isinstance(tree, dict):
         for k in sorted(tree):
-            yield from iter_leaves(tree[k], keys + (f"DictKey(key={k!r})",))
+            yield from iter_keyed_leaves(tree[k], keys + (f"DictKey(key={k!r})",))
     elif hasattr(tree, "_fields"):  # a NamedTuple side-car
         for f in tree._fields:
-            yield from iter_leaves(getattr(tree, f), keys + (_attr(f),))
+            yield from iter_keyed_leaves(getattr(tree, f), keys + (_attr(f),))
     elif isinstance(tree, (tuple, list)):
         for i, v in enumerate(tree):
-            yield from iter_leaves(v, keys + (f"SequenceKey(idx={i})",))
+            yield from iter_keyed_leaves(v, keys + (f"SequenceKey(idx={i})",))
     else:
-        yield _render_path(keys), tree, False
+        yield keys, tree, False
 
 
 def leaf_signature(tree) -> List[str]:
