@@ -122,6 +122,26 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 ABL_WARM_MS ms, ABL_SCANS steps a pass, ABL_REPEATS timed
                 passes) with its lever report printed on the lines before
                 its row; the popcount family launches
+  6c. contracts the contract checks (wittgenstein_tpu_torch.analysis) on the
+                card, alone: the command line's run(device="cuda") over
+                every registry entry (the contract checks SL401-SL404,
+                SL406, SL407, SL701, SL901, SL1201, the beat RNG audit
+                SL405, checkpoint completeness SL501, the serve contract
+                SL801, the pinned regressions SL1401 at their lowering
+                depth, registry coverage SL301), one row a pass with its
+                entries and seconds; then check_entry's rules on the
+                flagship (flagship_params(4096) x 16) and on the 10%
+                point of BASELINE config 3 (4096 x 4, rows at its sweep
+                seeds), both with the score cache, whose SL701 steps 8
+                ticks and holds the carried caches at full width bitwise
+                to recompute_caches; no finding may survive, and every
+                hand-written kernel must have launched.  Then three
+                seeded defects on the card, each flagged by its rule: a
+                PingPong deliver that writes msg_valid (SL402), the
+                registry's Handel run 40 ms and handed a commit that
+                skips the score-cache update (SL701), and that Handel
+                declaring one more BEAT_SEND_CALLS than its beat makes
+                (SL405)
   7. sweep      BASELINE config 3 through the port's run_sweep: Handel at
                 4096 nodes under default_params, byzantineSuicide at 0,
                 5, 10, 15, 20 and 25% (none at 0%), R = 4 a point,
@@ -210,7 +230,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 nothing drops, replica 0 equals the JAX package's seed-0 run
                 (THRU_R0, its state digest among the numbers), and the
                 occupancy kernels launch
-      From throughput on (10c-26) the phases read no earlier phase's states
+      From throughput on (10c-26a) the phases read no earlier phase's states
       (attack_env only the flagship's done_at) and run in LATER_POOL (3)
       worker processes at once, longest first, their lines printed when
       each ends; ethpow runs in this process meanwhile
@@ -337,6 +357,14 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 others', and
                 popcount_words, popcount_binop and cand_score launch;
                 attack_profile is ticks 200-209 inside the run
+ 26a. anim     HandelScenarios.genAnim's run through anim_frames: Handel
+                at 128 nodes under default_params, one replica, a frame
+                every 10 ms, the reference's 3000 ms: every frame's rows
+                (each live node's id, position, signatures held — the
+                popcount of its aggregate — and done flag) equal the JAX
+                package's (ANIM_R0, a digest over every frame), and the
+                popcount family launches; ms a tick.  The drawing is host
+                work and needs PIL, so the phase stops at the frames
  26b. durable   scripts/durable_smoke.py's proof on the flagship, in three
                 child processes of this script (`--durable-child`) run
                 one after another on a thread, beside the later phases
@@ -844,6 +872,21 @@ SERVE_R0 = {
     "handel_300_crash": "905b97b6009fd0369ddb79ab7375451a",
     "pingpong_preemptor": "5ec7778d4a2071034d33829ce54bc09e",
 }
+
+
+# the contracts phase: the CLI's passes over every registry entry, then the
+# BASELINE flagship and the 10% Byzantine sweep point at full width
+CONTRACT_BYZ_POINT = 2  # SWEEP_FRACTIONS[2] = 10%
+CONTRACT_STALE_AFTER_MS = 40  # the registry's Handel has committed by then
+# the anim phase: HandelScenarios.genAnim's run at the reference's depth
+# (128 nodes, a frame every 10 ms, 3000 ms)
+ANIM_NODES = 128
+ANIM_FREQ_MS = 10
+ANIM_MS = 3000
+ANIM_KEYS = ("id", "x", "y", "val", "special")
+# the JAX package's frames at ANIM_MS (scripts/torch_r0_reference.py anim)
+ANIM_R0 = {"frames": 300, "last_ms": 3000, "digest": "2e7b50d21e076578cd199101999e9c44",
+           "held": 16384, "done": 128}
 
 
 def serve_jobs(pp_nodes: int = PP_NODES, pp_ms: int = PP_MS,
@@ -4097,6 +4140,194 @@ def faults_pingpong(plain) -> dict:
     return out
 
 
+class _StoreWriter(BatchedPingPong):
+    """Seeded SL402 defect: deliver writes the engine's store."""
+
+    def deliver(self, net, state, deliver_mask, t):
+        state, em = super().deliver(net, state, deliver_mask, t)
+        return state._replace(msg_valid=torch.zeros_like(state.msg_valid)), em
+
+
+class _StaleCommit(BatchedHandel):
+    """Seeded SL701 defect: the commit moves the aggregates but keeps the
+    pre-commit score caches."""
+
+    def _commit(self, net, state, t):
+        before = {k: state.proto[k] for k in self.CACHE_LEAF_NAMES}
+        state = super()._commit(net, state, t)
+        return state._replace(proto={**state.proto, **before})
+
+
+def _swapped(net, cls):
+    """`net` with its protocol instance re-classed as `cls`."""
+    import copy
+
+    net = copy.copy(net)
+    proto = copy.copy(net.protocol)
+    proto.__class__ = cls
+    net.protocol = proto
+    return net
+
+
+def _flagship_entry(device=None):
+    net, state = make_handel(flagship_params(FLAGSHIP_NODES), score_cache=True, device=device)
+    return net, replicate_state(state, FLAGSHIP_REPLICAS)
+
+
+def _byzantine_entry(device=None):
+    """The 10% point of BASELINE config 3 as run_sweep builds its group:
+    rows at seeds 1000 * i + r."""
+    i = CONTRACT_BYZ_POINT
+    net, st = make_handel(sweep_configs()[i].params, score_cache=True, device=device)
+    rows = [st._replace(seed=torch.full_like(st.seed, 1000 * i + r))
+            for r in range(SWEEP_REPLICAS)]
+    return net, map_state(lambda *xs: torch.stack(xs), *rows)
+
+
+def _defect_entries() -> dict:
+    """The three seeded defects as registry-style entries: rule ->
+    (entry, the pass that must flag it)."""
+    from wittgenstein_tpu_torch.core.registries import (
+        BatchedProtocolEntry,
+        registry_batched_protocols,
+    )
+
+    def store_writer(device=None):
+        net, state = make_pingpong(32, device=device)
+        return _swapped(net, _StoreWriter), state
+
+    def stale_commit(device=None):
+        net, state = registry_batched_protocols.get("handel").factory(device=device)
+        one = map_state(lambda a: a.unsqueeze(0), state)
+        state = map_state(lambda a: a[0], net.run_ms_batched(one, CONTRACT_STALE_AFTER_MS))
+        return _swapped(net, _StaleCommit), state
+
+    def lying_beat(device=None):
+        net, state = registry_batched_protocols.get("handel").factory(device=device)
+        net = _swapped(net, type(net.protocol))
+        net.protocol.BEAT_SEND_CALLS += 1  # the beat makes one stacked send
+        return net, state
+
+    return {"SL402": (BatchedProtocolEntry("pingpong_store_writer", "pingpong_batched",
+                                           store_writer), "contracts"),
+            "SL701": (BatchedProtocolEntry("handel_stale_commit", "handel_batched",
+                                           stale_commit), "contracts"),
+            "SL405": (BatchedProtocolEntry("handel_lying_beat", "handel_batched", lying_beat),
+                      "rng")}
+
+
+def contracts() -> dict:
+    """The contract checks on the card: the command line's run over every
+    registry entry (one row a pass), check_entry on the flagship and the
+    10% Byzantine point at full width (their SL701 holds the carried score
+    caches to recompute_caches), with the launch counts zeroed before the
+    run and read after the wide checks; then the three seeded defects,
+    each flagged by its rule.  No finding may survive."""
+    from wittgenstein_tpu_torch.analysis import cli
+    from wittgenstein_tpu_torch.analysis.contracts import build_entry, check_entry, run_checks
+    from wittgenstein_tpu_torch.analysis.rng_audit import audit_entry
+    from wittgenstein_tpu_torch.core.registries import BatchedProtocolEntry
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    stats = {}
+    findings = cli.run(root, device="cuda", stats=stats)
+    torch.cuda.synchronize()
+    for name, row in stats.items():
+        emit({"phase": "contracts_pass", "pass": name, **row})
+    out = {"passes": stats, "run_s": time.perf_counter() - t0,
+           "findings": [f.format() for f in findings], "wide": {}}
+    for name, factory, nodes, replicas in (
+            ("flagship", _flagship_entry, FLAGSHIP_NODES, FLAGSHIP_REPLICAS),
+            ("byzantine_10", _byzantine_entry, SWEEP_NODES, SWEEP_REPLICAS)):
+        t1 = time.perf_counter()
+        net, states = build_entry(BatchedProtocolEntry(name, "handel_batched", factory), "cuda")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        got = run_checks(name, net, states, root)
+        torch.cuda.synchronize()
+        row = {"nodes": nodes, "replicas": replicas, "build_s": t2 - t1,
+               "check_s": time.perf_counter() - t2,
+               "cache_leaves": list(net.protocol.DERIVED_CACHE_LEAVES),
+               "findings": [f.format() for f in got]}
+        emit({"phase": "contracts_wide", "entry": name, **row})
+        out["wide"][name] = row
+        findings += got
+        del net, states
+    out["launches"] = {k.name: k.launches for k in kernels.KERNELS}
+    defects = {}
+    for rule, (entry, via) in _defect_entries().items():
+        t1 = time.perf_counter()
+        check = audit_entry if via == "rng" else check_entry
+        rules = sorted({f.rule for f in check(entry, root, device="cuda")})
+        defects[rule] = {"entry": entry.name, "rules": rules, "seconds": time.perf_counter() - t1}
+    out["defects"] = defects
+    out["seconds"] = time.perf_counter() - t0
+    emit({"phase": "contracts", **{k: v for k, v in out.items() if k != "wide"}})
+    if findings:
+        raise AssertionError("contracts: findings on the card:\n"
+                             + "\n".join(f.format() for f in findings))
+    for name, row in out["wide"].items():
+        if not row["cache_leaves"]:
+            raise AssertionError(f"contracts: {name} carries no score cache")
+    for rule, d in defects.items():
+        if rule not in d["rules"]:
+            raise AssertionError(f"contracts: the seeded {rule} defect ({d['entry']}) gave "
+                                 f"{d['rules']}")
+    idle = [k for k, n in out["launches"].items() if n <= 0]
+    if idle:
+        raise AssertionError(f"contracts: kernels never launched in the passes: {idle}")
+    return out
+
+
+def anim_summary(frames) -> dict:
+    """A genAnim run's frames as the numbers ANIM_R0 pins: the frame count
+    and last tick, a digest over every frame's tick and rows (ANIM_KEYS as
+    int64, in that order), and the last frame's signatures held and done
+    count."""
+    h = hashlib.sha256()
+    for t, rows in frames:
+        h.update(np.int64(t).tobytes())
+        for k in ANIM_KEYS:
+            h.update(np.ascontiguousarray(rows[k], dtype=np.int64).tobytes())
+    t, last = frames[-1]
+    return {"frames": len(frames), "last_ms": int(t), "digest": h.hexdigest()[:32],
+            "held": int(np.asarray(last["val"]).sum()),
+            "done": int(np.asarray(last["special"]).sum())}
+
+
+def anim() -> dict:
+    """genAnim's run (anim_frames, 128 nodes, 10-ms frames) to ANIM_MS on
+    the card, the launch counts zeroed after the build: every frame's rows
+    equal the JAX package's (ANIM_R0), and the popcount family launches;
+    ms a tick."""
+    from wittgenstein_tpu_torch.scenarios.handel_scenarios import anim_frames
+
+    ms = ANIM_MS
+    t0 = time.perf_counter()
+    frames = anim_frames(ANIM_NODES, ms, ANIM_FREQ_MS, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = list(frames)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    out = {"nodes": ANIM_NODES, "ms": ms, "frequency_ms": ANIM_FREQ_MS, "build_s": build_s,
+           "wall_s": wall, "ms_per_tick": wall / ms * 1e3, "launches": launches,
+           "launches_per_tick": {k: v / ms for k, v in launches.items()},
+           "replica0": anim_summary(got)}
+    emit({"phase": "anim", **out})
+    _check_replica0("anim", out["replica0"], ANIM_R0)
+    for name in ("popcount_words", "popcount_binop", "cand_score"):
+        if out["launches"][name] <= 0:
+            raise AssertionError(f"anim: {name} kernel never launched")
+    return out
+
+
 def attack_env(flag_done) -> dict:
     """BatchedAttackEnv on the flagship: make_handel(flagship_params(4096)),
     R = ATTACK_REPLICAS, ATTACK_HORIZON_MS in ATTACK_DECISION_MS steps,
@@ -4291,9 +4522,9 @@ def paxos() -> dict:
 # check has a worker of its own); the host's cores serve the loops'
 # launches, and the card serves the processes in turn
 LATER_POOL = 3
-LATER_PHASES = ("attack_env", "dfinity", "snowflake", "gsf", "casper", "sanfermin", "slush",
-                "handeleth2", "paxos", "miner_env", "cappos", "p2phandel", "enr", "optimistic",
-                "p2pflood", "throughput")
+LATER_PHASES = ("anim", "attack_env", "dfinity", "snowflake", "gsf", "casper", "sanfermin",
+                "slush", "handeleth2", "paxos", "miner_env", "cappos", "p2phandel", "enr",
+                "optimistic", "p2pflood", "throughput")
 LATER_RUNS = {
     "throughput": lambda done: throughput(), "dfinity": lambda done: dfinity(),
     "gsf": lambda done: gsf(), "p2phandel": lambda done: p2phandel(),
@@ -4303,6 +4534,7 @@ LATER_RUNS = {
     "p2pflood": lambda done: p2pflood(), "optimistic": lambda done: optimistic(),
     "cappos": lambda done: cappos(), "enr": lambda done: enr(),
     "miner_env": lambda done: miner_env(), "attack_env": attack_env,
+    "anim": lambda done: anim(),
 }
 
 
@@ -4361,11 +4593,11 @@ def later_phases(names: list, flag_done, run_ethpow: bool, seconds: dict) -> dic
     return runs
 
 
-PHASES = ("kernels", "identity", "flagship", "profiling", "telemetry", "sweep", "cities", "search",
-          "pingpong", "faults_pingpong", "pingpong_tele", "throughput", "dfinity", "gsf",
-          "p2phandel", "handeleth2", "sanfermin", "casper", "paxos", "slush", "snowflake",
-          "p2pflood", "optimistic", "cappos", "enr", "ethpow", "miner_env", "attack_env",
-          "durable", "serve")
+PHASES = ("kernels", "identity", "flagship", "profiling", "contracts", "telemetry", "sweep",
+          "cities", "search", "pingpong", "faults_pingpong", "pingpong_tele", "throughput",
+          "dfinity", "gsf", "p2phandel", "handeleth2", "sanfermin", "casper", "paxos", "slush",
+          "snowflake", "p2pflood", "optimistic", "cappos", "enr", "ethpow", "miner_env",
+          "attack_env", "anim", "durable", "serve")
 
 
 @torch.inference_mode()
@@ -4409,6 +4641,9 @@ def main(argv) -> int:
             raise SystemExit("chip_smoke: the profiling phase reads the flagship phase's run")
         runs["profiling"] = profiling(flag, info)
         lap("profiling")
+    if want("contracts"):
+        runs["contracts"] = contracts()
+        lap("contracts")
     # the sweep pool's processes run while this one runs the telemetry and
     # the PingPong phases
     pool = (Sweeps(want("sweep"), want("cities"), want("search"))

@@ -8,6 +8,7 @@ on the CPU.
     JAX_PLATFORMS=cpu python3 scripts/torch_r0_reference.py durable --ms 400 --out d.json
     JAX_PLATFORMS=cpu python3 scripts/torch_r0_reference.py serve --out s.json
     JAX_PLATFORMS=cpu python3 scripts/torch_r0_reference.py throughput --ms 700 --out t.json
+    JAX_PLATFORMS=cpu python3 scripts/torch_r0_reference.py anim --ms 3000 --out a.json
 
 `byzantine`: point i of BASELINE config 3's sweep, (0.0, 0.05, 0.10,
 0.15, 0.20, 0.25) Byzantine at 4096 nodes under `default_params`, is
@@ -35,6 +36,10 @@ handeleth2 also counts the nodes short of a full aggregate).
 with TELE_CFG and the score cache (the card's default) through
 run_fault_sweep at seed 0 for `--ms` (400) ms,
 read by chip_smoke's `durable_replica0` (DURABLE_R0), with its record.
+`anim`: HandelScenarios.genAnim's run (128 nodes, a frame every 10 ms)
+for `--ms` ms as the JAX package's gen_anim runs it, its frames (each
+live node's id, position, signatures held and done flag) summarized by
+chip_smoke's `anim_summary` (ANIM_R0 at 3000 ms).
 `serve`: every job of chip_smoke's serve phase (`serve_jobs()`: BASELINE
 config 1's PingPong under each fault op, the two flagship Handel jobs,
 the preemptor) through the JAX package's `BatchScheduler.run_singleton`,
@@ -287,7 +292,30 @@ def serve(ms: int) -> dict:
     return {"serve_r0": out}
 
 
-READERS = {"durable": durable, "serve": serve, "throughput": throughput, "ethpow": ethpow,
+def anim(ms: int) -> dict:
+    """HandelScenarios.genAnim's run as the JAX package's gen_anim runs it
+    (128 nodes under default_params with no dead nodes, run_ms a frame at
+    a time), its frames read as the port's anim_frames gives them and
+    summarized by chip_smoke's anim_summary (ANIM_R0)."""
+    import chip_smoke as cs
+    from wittgenstein_tpu.ops.bitops import popcount_words
+
+    net, state = make_handel(default_params(cs.ANIM_NODES, dead_ratio=0.0))
+    live = ~np.asarray(state.down)
+    ids = np.flatnonzero(live)
+    xs, ys = np.asarray(state.x)[live], np.asarray(state.y)[live]
+    frames, t = [], 0
+    while t < ms:
+        state = net.run_ms(state, cs.ANIM_FREQ_MS)
+        t += cs.ANIM_FREQ_MS
+        held = np.asarray(popcount_words(state.proto["inc"]))[live]
+        done = (np.asarray(state.done_at) > 0)[live]
+        frames.append((t, {"id": ids, "x": xs, "y": ys, "val": held, "special": done}))
+    return {"ms": ms, "replica0": cs.anim_summary(frames)}
+
+
+READERS = {"anim": anim, "durable": durable, "serve": serve, "throughput": throughput,
+           "ethpow": ethpow,
            "p2phandel": p2phandel, "sanfermin": sanfermin, "handeleth2": handeleth2,
            "cappos": cappos}
 

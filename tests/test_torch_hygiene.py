@@ -267,7 +267,8 @@ def test_sweep_entry_points_default_to_cuda(monkeypatch, tmp_path):
     assert names == {"scenarios/__init__.py", "scenarios/sweep.py",
                      "scenarios/handel_scenarios.py", "scenarios/regressions.py",
                      "tools/__init__.py", "tools/latency_csv.py", "tools/csv_formatter.py",
-                     "tools/graph.py", "tools/fault_sweep.py", "tools/profiling.py"}
+                     "tools/graph.py", "tools/fault_sweep.py", "tools/profiling.py",
+                     "tools/node_drawer.py"}
 
 
 def test_search_entry_points_default_to_cuda(monkeypatch, tmp_path):
@@ -357,3 +358,52 @@ def test_profiling_entry_points_default_to_cuda(monkeypatch):
                                 "level_block_mask"}
     for mod in (scenarios, runtime, ops):
         assert all(hasattr(mod, name) for name in mod.__all__), mod.__name__
+
+
+def test_contract_entry_points_default_to_cuda(monkeypatch):
+    """The contract checks (check_all, audit_all, the other passes, the
+    command line's run) and anim_frames: CUDA unless asked for the CPU,
+    and without a card the default raises; the analysis modules and the
+    node drawer are among the sources held free of JAX imports."""
+    from wittgenstein_tpu_torch.analysis import cli
+    from wittgenstein_tpu_torch.analysis.checkpoint_check import check_checkpoints
+    from wittgenstein_tpu_torch.analysis.contracts import check_all
+    from wittgenstein_tpu_torch.analysis.regressions_check import check_regressions
+    from wittgenstein_tpu_torch.analysis.rng_audit import audit_all
+    from wittgenstein_tpu_torch.analysis.serve_check import check_serve_scheduler
+    from wittgenstein_tpu_torch.scenarios.handel_scenarios import anim_frames
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for run in (lambda: check_all(names=["pingpong"]), lambda: audit_all(names=["pingpong"]),
+                lambda: check_checkpoints(names=["pingpong"]),
+                lambda: check_serve_scheduler(), lambda: check_regressions(str(ROOT), lower=True),
+                lambda: cli.run(str(ROOT), protocols=["pingpong"]),
+                lambda: cli.main(["--root", str(ROOT), "--protocol", "pingpong"]),
+                lambda: anim_frames(16, 20)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run()
+    assert check_all(names=["pingpong"], device="cpu") == []
+    assert next(anim_frames(16, 20, device="cpu"))[0] == 10
+    names = {str(p.relative_to(PKG)) for p in SOURCES if p.parent.name == "analysis"}
+    assert names == {"analysis/__init__.py", "analysis/__main__.py", "analysis/findings.py",
+                     "analysis/contracts.py", "analysis/rng_audit.py",
+                     "analysis/checkpoint_check.py", "analysis/serve_check.py",
+                     "analysis/regressions_check.py", "analysis/registry_check.py",
+                     "analysis/cli.py"}
+
+
+def test_world_map_is_its_own():
+    """The node drawer reads the port's own copy of the world map, a byte
+    copy of the JAX package's, and imports PIL only when it draws."""
+    from wittgenstein_tpu_torch.tools import node_drawer
+
+    assert node_drawer.WORLD_MAP == PKG / "data" / "world_map_2000px.png"
+    assert node_drawer.WORLD_MAP.is_file()
+    assert node_drawer.WORLD_MAP.read_bytes() == (
+        ROOT / "wittgenstein_tpu" / "data" / "world_map_2000px.png").read_bytes()
+    body = ast.parse((PKG / "tools" / "node_drawer.py").read_text()).body
+    top = {a.name for n in body if isinstance(n, ast.Import) for a in n.names}
+    top |= {n.module for n in body if isinstance(n, ast.ImportFrom) and n.module}
+    assert not any(m.split(".")[0] == "PIL" for m in top)
+    assert any(m.split(".")[0] == "PIL"
+               for m in _imported_modules(PKG / "tools" / "node_drawer.py"))

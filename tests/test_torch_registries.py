@@ -1,7 +1,8 @@
 """The port's batched-protocol registry against the JAX package's.
 
 The same names, modules, notes and contract flags; every factory's
-initial state equals the JAX factory's in every leaf (words as int32 bit
+protocol has the JAX factory's contract() and its initial state equals
+the JAX factory's in every leaf (words as int32 bit
 views, the p2pflood_faults entry's fault side-car included), and
 ETHPoW's entry raises in both.  The attack environment's default goes
 through the registry's "handel" entry and gives the JAX environment's
@@ -57,6 +58,7 @@ def test_factory_initial_state_matches(name):
     assert tnet.device.type == "cpu"
     assert tnet.n_nodes == jnet.n_nodes
     assert type(tnet.protocol).__name__ == type(jnet.protocol).__name__
+    assert tnet.protocol.contract() == jnet.protocol.contract()
     assert_same_state(jax_numpy(jstate), state_to_numpy(tstate), name)
 
 

@@ -63,9 +63,13 @@ find:
               and event loop, with the selfish-mining environment; the
               Handel attack environment on the fault lanes
   tools/      the profiler window reader and trace helpers, CSV and
-              graph writers, the fault-sweep command line
+              graph writers, the fault-sweep command line, the world-map
+              node drawer (GIF frames; needs PIL)
+  analysis/   the contract checks over every registered protocol, with
+              the JAX package's rule ids, and their command line
   data/       the port's own copy of the city tables (names, positions,
-              populations), and the card's budget (BUDGET.json)
+              populations) and of the world map, and the card's budget
+              (BUDGET.json)
   interop.py  carry a JAX-package state into the port and back
 """
 

@@ -18,10 +18,13 @@ from .core import (
     stack_states,
 )
 from .density import LanePlan, NarrowLeaf, lane_plan, narrowest_int
-from .protocol import BatchedProtocol
+from .protocol import ENGINE_OWNED_FIELDS, HOST_HOOKS, KERNEL_HOOKS, BatchedProtocol
 from .rng import hash32, pseudo_delta, uniform_u01
 
 __all__ = [
+    "ENGINE_OWNED_FIELDS",
+    "HOST_HOOKS",
+    "KERNEL_HOOKS",
     "BatchedNetwork",
     "BatchedProtocol",
     "CapacityEntry",

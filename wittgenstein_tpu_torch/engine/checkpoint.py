@@ -55,6 +55,12 @@ ENGINE_LAYOUT = "timewheel-v3"
 # older stamps that still load, with the restrictions of load_state
 COMPAT_LAYOUTS = ("timewheel-v1", "timewheel-v2")
 MANIFEST_FORMAT = 2
+# State leaves deliberately NOT checkpointed: restored from the load
+# template instead (the JAX package's declaration, empty there too: every
+# leaf is part of the bit-identity contract).  SL501 holds save and load
+# to this set: a new SimState field either round-trips bitwise or is
+# declared here with a reason.
+EPHEMERAL_LEAVES: frozenset = frozenset()
 
 
 class CheckpointError(Exception):
@@ -316,7 +322,10 @@ def load_state(template: Any, src: str, verify: bool = True) -> Any:
         arrays: Dict[str, np.ndarray] = {}
         for key, want in _host_leaves(template):
             if key not in data:
-                # every leaf is part of the bit-identity contract
+                if key in EPHEMERAL_LEAVES:
+                    arrays[key] = np.asarray(want)
+                    continue
+                # every other leaf is part of the bit-identity contract
                 raise CheckpointMissingLeafError(f"checkpoint {src} is missing leaf {key!r}")
             try:
                 arr = data[key]

@@ -77,6 +77,9 @@ class NarrowLeaf:
     declared_max: int
     sentinel: bool = False  # INT32_MAX <-> iinfo(dtype).max mapping
 
+    def key(self) -> tuple:
+        return (self.name, self.dtype, int(self.declared_max), bool(self.sentinel))
+
 
 def narrow_leaf(x: torch.Tensor, spec: NarrowLeaf) -> torch.Tensor:
     """int32 -> declared storage dtype (sentinel-mapped)."""

@@ -18,6 +18,40 @@ import torch
 
 from .density import narrow_tree, widen_tree
 
+# Machine-readable contract metadata, the JAX package's, read by the
+# contract checks (wittgenstein_tpu_torch.analysis).
+
+# SimState fields owned by the engine: protocol hooks never write them
+# (`deliver` returns emissions instead of touching the store; the engine
+# ticks the counters and the clock).  A protocol with a genuine exception
+# declares it in DELIVER_MAY_TOUCH.
+ENGINE_OWNED_FIELDS = (
+    "time",
+    "seed",
+    "send_ctr",
+    "msg_valid",
+    "msg_arrival",
+    "msg_from",
+    "msg_to",
+    "msg_type",
+    "msg_payload",
+    "whl_fill",
+    "ovf_valid",
+    "ovf_arrival",
+    "ovf_from",
+    "ovf_to",
+    "ovf_type",
+    "ovf_payload",
+    "msg_head",
+    "dropped",
+    "tele",
+    "faults",
+)
+
+# hooks that run inside a tick vs host-side construction hooks
+KERNEL_HOOKS = ("deliver", "tick", "tick_beat", "tick_post", "all_done")
+HOST_HOOKS = ("proto_init", "initial_emissions", "msg_size", "n_msg_types", "mtype")
+
 
 class BatchedProtocol:
     """Subclass and override.  MSG_TYPES maps message-type names to the int
@@ -42,6 +76,18 @@ class BatchedProtocol:
     # advances send_ctr by this amount so the per-event RNG stream is the
     # same as on the ungated path
     BEAT_SEND_CALLS: int = 0
+    # engine-owned SimState fields this protocol's deliver() may write
+    # (empty for every protocol; an exception is declared here so the
+    # ownership check stays exact)
+    DELIVER_MAY_TOUCH: tuple = ()
+    # contract rule ids (e.g. "SL404") suppressed for this protocol's
+    # dynamic checks; use sparingly, with a comment
+    SIMLINT_SUPPRESS: tuple = ()
+    # names of state.proto leaves that are derived caches, recomputable
+    # from the authoritative leaves at any tick boundary; a protocol
+    # declaring leaves here overrides recompute_caches(), which SL701
+    # holds the carried leaves to bitwise after concrete steps
+    DERIVED_CACHE_LEAVES: tuple = ()
     # narrow-storage declarations (engine.density.NarrowLeaf)
     NARROW_LEAVES: tuple = ()
     # proto leaves the JAX package carries as uint32 words (int32 bit views
@@ -50,6 +96,29 @@ class BatchedProtocol:
     # reads both
     WORD_LEAVES: tuple = ()
     PROTO_KEYS: tuple = ()
+
+    def contract(self) -> dict:
+        """Machine-readable contract summary (instance-level: factories may
+        set BEAT_* per instance), the JAX package's keys and values.  The
+        port's WORD_LEAVES and PROTO_KEYS describe interop, not the
+        contract, and stay out of it."""
+        msg_types = self.MSG_TYPES
+        return {
+            "protocol": type(self).__name__,
+            "msg_types": list(msg_types) if msg_types else [],
+            "n_msg_types": self.n_msg_types(),
+            "payload_width": int(self.PAYLOAD_WIDTH),
+            "tick_interval": self.TICK_INTERVAL,
+            "time_quantum": int(self.TIME_QUANTUM),
+            "beat_period": self.BEAT_PERIOD,
+            "beat_residues": tuple(self.BEAT_RESIDUES) if self.BEAT_RESIDUES else None,
+            "beat_send_calls": int(self.BEAT_SEND_CALLS),
+            "engine_owned_fields": list(ENGINE_OWNED_FIELDS),
+            "deliver_may_touch": list(self.DELIVER_MAY_TOUCH),
+            "simlint_suppress": list(self.SIMLINT_SUPPRESS),
+            "derived_cache_leaves": list(self.DERIVED_CACHE_LEAVES),
+            "narrow_leaves": [s.key() for s in self.NARROW_LEAVES],
+        }
 
     def n_msg_types(self) -> int:
         return max(1, len(self.MSG_TYPES))
@@ -96,6 +165,12 @@ class BatchedProtocol:
     def narrow_proto(self, proto):
         """int32 compute view -> declared storage dtypes."""
         return narrow_tree(proto, self.NARROW_LEAVES)
+
+    def recompute_caches(self, state) -> dict:
+        """From-scratch values for every DERIVED_CACHE_LEAVES leaf, as a
+        {leaf_name: tensor} dict computed from the authoritative proto
+        leaves only: the consistency oracle of SL701."""
+        return {}
 
     # -- termination ----------------------------------------------------------
     def all_done(self, state) -> torch.Tensor:

@@ -75,6 +75,7 @@ class BatchedHandel(BitsetAggBase):
                 raise ValueError(f"cand_slots={params.cand_slots} must be positive")
             self.CAND_SLOTS = params.cand_slots
         self._init_geometry(params.node_count)
+        self.DERIVED_CACHE_LEAVES = self.CACHE_LEAF_NAMES if self.SCORE_CACHE else ()
         # blacklist + byzantine bitsets are carried only when an attack can
         # ever set a bit in them
         self.track_bad = bool(params.byzantine_suicide or params.hidden_byzantine)
@@ -931,6 +932,7 @@ def make_handel(
     proto = BatchedHandel(params)
     proto.BOUNDARY_VIEW = bool(boundary_view)
     proto.SCORE_CACHE = bool(score_cache)
+    proto.DERIVED_CACHE_LEAVES = proto.CACHE_LEAF_NAMES if score_cache else ()
     # beat structure: dissemination fires at t with
     # (t - (start_at + 1)) % period == 0
     proto.BEAT_PERIOD = params.dissemination_period_ms

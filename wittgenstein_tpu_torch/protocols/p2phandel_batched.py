@@ -72,6 +72,7 @@ class BatchedP2PHandel(BatchedProtocol):
     # carried int32[N] cardinality replaces the two [N, N] reductions per
     # tick; bit-identical either way
     SCORE_CACHE = True
+    CACHE_LEAF_NAMES = ("ver_card",)
 
     def __init__(self, params: P2PHandelParameters, adjacency: np.ndarray, just_relay,
                  device=None):
@@ -84,6 +85,7 @@ class BatchedP2PHandel(BatchedProtocol):
         self.adj_to = torch.clamp(self.adj, min=0)
         self.just_relay = torch.as_tensor(np.asarray(just_relay, bool), device=dev)
         self.PAYLOAD_WIDTH = (self.n_nodes + 31) // 32
+        self.DERIVED_CACHE_LEAVES = self.CACHE_LEAF_NAMES if self.SCORE_CACHE else ()
         self.NARROW_LEAVES = self._narrow_plan()
 
     def _narrow_plan(self) -> tuple:
@@ -130,6 +132,13 @@ class BatchedP2PHandel(BatchedProtocol):
         if self.SCORE_CACHE:
             proto["ver_card"] = verified.sum(-1).to(torch.int32)
         return self.narrow_proto(proto)
+
+    def recompute_caches(self, state) -> dict:
+        if not self.SCORE_CACHE:
+            return {}
+        # re-narrowed so the leaf matches the carried storage dtype
+        return self.narrow_proto(
+            {"ver_card": state.proto["verified"].sum(-1).to(torch.int32)})
 
     def _to_peers(self, mask, mtype: str, packed, any_row: bool = True) -> Emission:
         """One message to every peer of each node: mask [R, N, P]; packed
@@ -355,6 +364,7 @@ def make_p2phandel(
     cols = build_node_columns(nodes, getattr(latency, "city_index", None))
     proto = BatchedP2PHandel(params, adj, just_relay, device=dev)
     proto.SCORE_CACHE = bool(score_cache)
+    proto.DERIVED_CACHE_LEAVES = proto.CACHE_LEAF_NAMES if score_cache else ()
     net = BatchedNetwork(proto, latency, proto.n_nodes, capacity=capacity, device=dev)
     state = net.init_state(cols, seed=seed, proto=proto.proto_init(proto.n_nodes, device=dev))
     return net, state

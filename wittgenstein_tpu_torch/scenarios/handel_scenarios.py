@@ -23,6 +23,9 @@ Scenarios (HandelScenarios.java refs):
   logExtraCycle   extraCycle sweep (:565-586)
   logContactedNode fastPath sweep + PNGs (:588-632)
   window          windowInitial sweep (WindowParameters, Handel.java:150-210)
+  genAnim         one Handel run drawn as an animated GIF on the world
+                  map (:291, Handel.drawImgs :700-768), one frame every
+                  --frequency-ms; drawing needs PIL
   delayedStart    the delayedStartImpact arithmetic (:300-322)
   all             allScenarios battery (:633-656): the four log* sweeps at
                   (dead, tor) in {(0,0), (.2,0), (.2,.2)} with the
@@ -40,6 +43,9 @@ from __future__ import annotations
 import argparse
 from typing import List, Optional
 
+import numpy as np
+
+from ..engine import resolve_device
 from ..tools.csv_formatter import CSVFormatter
 from .sweep import BasicStats, SweepConfig, default_params, run_sweep
 
@@ -341,6 +347,78 @@ def run_all(nodes: int, replicas: int, sim_ms: int, out: Optional[str], battery=
         print(f"wrote {out}")
 
 
+def anim_frames(nodes: int = 128, sim_ms: int = 3000, frequency_ms: int = 10, device=None):
+    """The run behind HandelScenarios.genAnim (:291): Handel at `nodes`
+    under default_params with no dead nodes, one replica, advanced
+    `frequency_ms` at a time up to `sim_ms`; yields each frame as
+    (t, rows) with rows a dict of [live] numpy arrays — `id`, `x`, `y`,
+    `val` (signatures held: the popcount of the node's aggregate) and
+    `special` (done).  The network is built here, on the device (CUDA
+    unless asked for the CPU), and the run advances as the frames are
+    taken; the frames are host arrays, so drawing them needs no device."""
+    from ..engine import map_state
+    from ..ops.bitops import popcount_words
+    from ..protocols.handel_batched import make_handel
+
+    net, state = make_handel(default_params(nodes, dead_ratio=0.0),
+                             device=resolve_device(device))
+    live = ~state.down.cpu().numpy()
+    ids = np.flatnonzero(live).astype(np.int32)
+    xs, ys = state.x.cpu().numpy()[live], state.y.cpu().numpy()[live]
+
+    def frames(states):
+        t = 0
+        while t < sim_ms:
+            states = net.run_ms_batched(states, frequency_ms)
+            t += frequency_ms
+            held = popcount_words(states.proto["inc"][0]).cpu().numpy()
+            done = states.done_at[0].cpu().numpy() > 0
+            yield t, {"id": ids, "x": xs, "y": ys, "val": held[live], "special": done[live]}
+
+    return frames(map_state(lambda a: a.unsqueeze(0), state))  # one replica, its own seed
+
+
+def gen_anim(
+    nodes: int = 128,
+    sim_ms: int = 3000,
+    frequency_ms: int = 10,
+    dest: str = "handel.gif",
+    device=None,  # None = CUDA; "cpu" runs the plain versions
+) -> str:
+    """HandelScenarios.genAnim (:291) via Handel.drawImgs (:700-768): the
+    run of anim_frames rendered as a GIF — each node a map dot colored by
+    its aggregate signature count (red->green ramp), done nodes marked.
+    Drawing needs PIL."""
+    from types import SimpleNamespace
+
+    from ..tools.node_drawer import NodeDrawer, NodeStatus
+
+    class HStatus(NodeStatus):
+        # Handel's HNodeStatus: value = signatures held, special = done
+        def get_val(self, n):
+            return n.val
+
+        def is_special(self, n):
+            return n.special
+
+        def get_max(self):
+            return nodes
+
+        def get_min(self):
+            return 0
+
+    frames = anim_frames(nodes, sim_ms, frequency_ms, device=device)
+    with NodeDrawer(HStatus(), dest, frequency_ms) as drawer:
+        for t, rows in frames:
+            live = [
+                SimpleNamespace(node_id=int(i), x=int(x), y=int(y), val=int(v), special=bool(s))
+                for i, x, y, v, s in zip(rows["id"], rows["x"], rows["y"], rows["val"],
+                                         rows["special"])
+            ]
+            drawer.draw_new_state(t, live)
+    return dest
+
+
 def run_scenario(
     name: str,
     nodes: int = 128,
@@ -371,11 +449,12 @@ def run_scenario(
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("scenario", choices=sorted(SCENARIOS) + ["delayedStart", "all"])
+    ap.add_argument("scenario", choices=sorted(SCENARIOS) + ["genAnim", "delayedStart", "all"])
     ap.add_argument("--nodes", type=int, default=128)
     ap.add_argument("--replicas", type=int, default=4)
     ap.add_argument("--sim-ms", type=int, default=4000)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--frequency-ms", type=int, default=10)
     ap.add_argument("--dead", type=float, default=0.0)
     from ..core.registries import TOR_RATIOS
 
@@ -390,6 +469,11 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default; raises without a GPU) or cpu")
     a = ap.parse_args(argv)
+    if a.scenario == "genAnim":
+        dest = gen_anim(a.nodes, a.sim_ms, a.frequency_ms, a.out or "handel.gif",
+                        device=a.device)
+        print(f"wrote {dest}")
+        return
     if a.scenario == "delayedStart":
         delayed_start_impact(a.nodes, a.wait_time, a.period)
         return
