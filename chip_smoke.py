@@ -126,7 +126,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 card, alone: the command line's run(device="cuda") over
                 every registry entry (the contract checks SL401-SL404,
                 SL406, SL407, SL701, SL901, SL1201, the beat RNG audit
-                SL405, checkpoint completeness SL501, the serve contract
+                SL405, checkpoint completeness SL501, the mesh audit
+                SL1001, the serve contract
                 SL801, the pinned regressions SL1401 at their lowering
                 depth, registry coverage SL301), one row a pass with its
                 entries and seconds; then check_entry's rules on the
@@ -230,8 +231,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 nothing drops, replica 0 equals the JAX package's seed-0 run
                 (THRU_R0, its state digest among the numbers), and the
                 occupancy kernels launch
-      From throughput on (10c-26a) the phases read no earlier phase's states
-      (attack_env only the flagship's done_at) and run in LATER_POOL (3)
+      From throughput on (10c-26z) the phases read no earlier phase's states
+      (attack_env only the flagship's done_at) and run in LATER_POOL (5)
       worker processes at once, longest first, their lines printed when
       each ends; ethpow runs in this process meanwhile
  11. dfinity    make_dfinity(max_heights=64), R=256, 15000 ms: nothing may
@@ -365,6 +366,31 @@ Phases, each printing one JSON line; any failure raises and exits non-zero
                 package's (ANIM_R0, a digest over every frame), and the
                 popcount family launches; ms a tick.  The drawing is host
                 work and needs PIL, so the phase stops at the frames
+ 26x. mesh     the multi-device layer, the later pool's pole: the
+                flagship (flagship_params(4096), R = 4) on a (2, 2)
+                layout over the card four times, node-sharded
+                (enable_node_sharding): 300 ms through the run cache's
+                (2, 2) entry, then run_ms_batched with stop_when_done to
+                done, every leaf equal to the unsharded R = 4 run of the
+                same states (the cache's None entry, then to done), the
+                five statistics equal, each channel array and node
+                column 1/4 of its bytes a cell; then (4, 1) for 300 ms
+                through the cache, equal to the unsharded entry, three
+                entries in all.  Ticks, ms a tick beside the unsharded
+                run's, launches a tick by form, peak memory
+ 26y. mesh_small  PingPong (config 1's 1000 nodes, R = 64, 700 ms with
+                stop_when_done on the wheel) and P2PFlood (the reference
+                defaults, R = 64, to done) on (2, 4) over the card eight
+                times, each equal to its unsharded run with equal
+                jump_stats, pack_occupied and lowest_set_bit launched.
+                The kernels line lists both phases' launches under
+                `mesh`
+ 26z. mesh_mixed  the registry's Handel and PingPong (R = 2, 120 ms) on
+                (1, 2) and (2, 1) over [cuda:0, cpu], two devices that
+                really differ, each equal to its unsharded run on the
+                card; and the flagship's (2, 2) run with
+                exchange_capacity=2 for 200 ms, which counts more
+                displaced than the exact run
  26b. durable   scripts/durable_smoke.py's proof on the flagship, in three
                 child processes of this script (`--durable-child`) run
                 one after another on a thread, beside the later phases
@@ -459,6 +485,7 @@ import torch
 from wittgenstein_tpu_torch.core.node import Node, build_node_columns
 from wittgenstein_tpu_torch.core.registries import (
     builder_name,
+    registry_batched_protocols,
     registry_network_latencies,
     registry_node_builders,
 )
@@ -524,7 +551,17 @@ from wittgenstein_tpu_torch.obs import (
     mint_context,
     read_events,
 )
-from wittgenstein_tpu_torch.parallel import run_cache_info, run_cache_metrics
+from wittgenstein_tpu_torch.parallel import (
+    assert_channel_ownership,
+    clear_run_cache,
+    enable_node_sharding,
+    make_mesh2d_layout,
+    run_cache_info,
+    run_cache_metrics,
+    sharded_run_stats,
+)
+from wittgenstein_tpu_torch.parallel.mesh2d import keyed_leaves
+from wittgenstein_tpu_torch.parallel.replica_shard import _RUN_CACHE
 from wittgenstein_tpu_torch.runtime import ResumeMismatchError, Supervisor, WatchdogPolicy
 from wittgenstein_tpu_torch.scenarios.regressions import (
     REGRESSIONS_DIR,
@@ -4516,15 +4553,232 @@ def paxos() -> dict:
     return out
 
 
+# the mesh phases: layouts over one card repeated (devices may repeat),
+# the flagship at full width on (2, 2), the run cache's layouts, a
+# bounded exchange, PingPong and P2PFlood on (2, 4), and two devices that
+# really differ (the card and the host CPU)
+MESH_REPLICAS = 4  # the flagship's R on (2, 2) and (4, 1)
+MESH_CACHE_MS = 300  # the run cache's horizon; the runs continue to done
+MESH_BOUNDED_MS = 200
+MESH_PP_REPLICAS = 64
+MESH_FLOOD_REPLICAS = 64
+MESH_SMALL_MS = 120  # the two-device runs, at the registry's analysis scale
+
+
+def _cards(n: int) -> list:
+    return ["cuda:0"] * n
+
+
+def _placed_diff(out, ref) -> list:
+    """The leaves (keystr paths) in which a placed run, gathered, differs
+    from its unsharded run."""
+    got = dict(keyed_leaves(out.gather()))
+    return [k for k, v in keyed_leaves(ref) if not torch.equal(got[k], v.to(got[k].device))]
+
+
+def _node_shares(out) -> dict:
+    """Each node column's largest shard as a share of its bytes (1/P)."""
+    shares = {key: max(s.untyped_storage().nbytes() for s in shards) / nbytes
+              for key, _, nbytes, shards in out.leaf_shards() if key in out.node_keys and nbytes}
+    return shares
+
+
+def _timed_call(fn):
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, {k.name: k.launches for k in kernels.KERNELS}
+
+
+def mesh() -> dict:
+    """The flagship (flagship_params(4096), R = MESH_REPLICAS) on a (2, 2)
+    layout over the card four times, node-sharded (enable_node_sharding):
+    MESH_CACHE_MS through the run cache (its (2, 2) entry), then
+    run_ms_batched with stop_when_done to done, bitwise equal leaf for
+    leaf to the unsharded run of the same states (the cache's None entry,
+    then to done), its statistics equal, every channel array and node
+    column 1/4 in each cell.  The replica axis through the run cache:
+    (4, 1) for MESH_CACHE_MS, equal to the unsharded entry, three entries
+    in all."""
+    net, state = make_handel(flagship_params(4096))
+    states = replicate_state(state, MESH_REPLICAS)
+    clear_run_cache()
+    (ref300, ref_stats), ref_s, _ = _timed_call(
+        lambda: sharded_run_stats(net, states, MESH_CACHE_MS))
+    if bool(net.protocol.all_done(ref300).all()):
+        raise AssertionError("mesh: the flagship is done before the cache horizon")
+    ref, rest_s, _ = _timed_call(
+        lambda: net.run_ms_batched(ref300, SIM_MS - MESH_CACHE_MS, True))
+    lay = make_mesh2d_layout(2, 2, _cards(4))
+    snet = enable_node_sharding(net, lay.mesh)
+
+    def sharded():
+        out300, stats = sharded_run_stats(snet, states, MESH_CACHE_MS, layout=lay)
+        return out300, stats, snet.run_ms_batched(out300, SIM_MS - MESH_CACHE_MS, True)
+
+    (out300, stats, out), wall, launches = _timed_call(sharded)
+    peak = torch.cuda.max_memory_allocated()
+    done = ref.done_at.cpu().numpy()
+    ticks = int(done.max()) + 1
+    diff = _placed_diff(out, ref)
+    stat_diff = [k for k, v in ref_stats.items() if not torch.equal(v, stats[k].to(v.device))]
+    owned = assert_channel_ownership(snet, out, n_devices=4)
+    shares = _node_shares(out)
+    lay41 = make_mesh2d_layout(4, 1, _cards(4))
+    (out41, stats41), wall41, launches41 = _timed_call(
+        lambda: sharded_run_stats(net, states, MESH_CACHE_MS, layout=lay41))
+    diff41 = _placed_diff(out41, ref300)
+    stat_diff41 = [k for k, v in ref_stats.items() if not torch.equal(v, stats41[k].to(v.device))]
+    entries = sorted(str(key[2]) for key in _RUN_CACHE)
+    res = {
+        "phase": "mesh", "layout": [2, 2], "nodes": net.n_nodes, "replicas": MESH_REPLICAS,
+        "ticks": ticks, "wall_s": wall, "ms_per_tick": wall / ticks * 1e3,
+        "ref_ms_per_tick": (ref_s + rest_s) / ticks * 1e3,
+        "launches": launches,
+        "launches_per_tick": {k: v / ticks for k, v in launches.items()},
+        "max_memory_allocated": peak, "leaves_differing": diff, "stats_differing": stat_diff,
+        "channel_share": {k: per / total for k, (per, total) in owned.items()},
+        "node_share_max": max(shares.values()), "node_share_min": min(shares.values()),
+        "cache_41_wall_s": wall41, "cache_41_ms_per_tick": wall41 / MESH_CACHE_MS * 1e3,
+        "cache_41_leaves_differing": diff41, "cache_41_stats_differing": stat_diff41,
+        "cache_entries": entries, "run_cache": run_cache_info(),
+        "all_live_done": bool(np.where(ref.down.cpu().numpy(), 1, done).min() > 0),
+    }
+    emit(res)
+    if diff or stat_diff:
+        raise AssertionError(f"mesh: (2, 2) differs from the unsharded run in {diff} {stat_diff}")
+    if not res["all_live_done"]:
+        raise AssertionError("mesh: not every live node finished")
+    if any(abs(x - 0.25) > 1e-12 for x in shares.values()):
+        raise AssertionError(f"mesh: node columns not 1/4 a cell: {shares}")
+    if diff41 or stat_diff41:
+        raise AssertionError(f"mesh: (4, 1) differs from the unsharded entry in {diff41} "
+                             f"{stat_diff41}")
+    want = sorted(str(g) for g in (None, lay.geometry(), lay41.geometry()))
+    if entries != want:
+        raise AssertionError(f"mesh: run-cache entries {entries}, want {want}")
+    for name in ("popcount_words", "popcount_binop", "cand_score"):
+        if launches[name] <= 0:
+            raise AssertionError(f"mesh: {name} never launched on the (2, 2) run")
+    clear_run_cache()
+    return res
+
+
+def _replicated(make, replicas: int):
+    """A builder of (net, the built state replicated `replicas` times)."""
+    def build():
+        net, state = make()
+        return net, replicate_state(state, replicas)
+
+    return build
+
+
+def _mesh_pair(tag: str, make_states, ms: int, stop: bool, p_r: int, p_n: int, devices):
+    """One layout's run against the unsharded run on the card: (row,
+    launches of the placed run)."""
+    net, states = make_states()
+    (ref, ref_wall, _) = _timed_call(lambda: net.run_ms_batched(states, ms, stop))
+    ref_stats = net.jump_stats
+    lay = make_mesh2d_layout(p_r, p_n, devices)
+    out, wall, launches = _timed_call(
+        lambda: net.run_ms_batched(lay.place(net, states), ms, stop))
+    stats = net.jump_stats
+    diff = _placed_diff(out, ref)
+    row = {"phase": "mesh_run", "case": tag, "layout": [p_r, p_n],
+           "devices": [str(d) for d in lay.mesh.devices.flat],
+           "replicas": int(states.time.shape[0]), "nodes": net.n_nodes, "ms": ms,
+           "ref_wall_s": ref_wall, "wall_s": wall, "launches": launches,
+           "leaves_differing": diff}
+    if ref_stats is not None:
+        row["iterations"] = stats["iterations"]
+        row["ms_per_iteration"] = wall / max(1, stats["iterations"]) * 1e3
+        row["ref_ms_per_iteration"] = ref_wall / max(1, ref_stats["iterations"]) * 1e3
+        row["launches_per_iteration"] = {k: v / max(1, stats["iterations"])
+                                         for k, v in launches.items()}
+        row["jump_stats_equal"] = (stats["iterations"] == ref_stats["iterations"] and all(
+            torch.equal(stats[k].cpu(), ref_stats[k].cpu()) for k in ("last_tick", "ticks")))
+    emit(row)
+    if diff or not row.get("jump_stats_equal", True):
+        raise AssertionError(f"mesh {tag} {(p_r, p_n)}: differs from the unsharded run in "
+                             f"{diff}, jump_stats equal {row.get('jump_stats_equal')}")
+    return row, launches
+
+
+def mesh_small() -> dict:
+    """PingPong (BASELINE config 1's 1000 nodes, R = MESH_PP_REPLICAS,
+    PP_MS with stop_when_done on the wheel) and P2PFlood (the reference
+    defaults, R = MESH_FLOOD_REPLICAS, to done) on (2, 4) over the card
+    eight times, each bitwise equal to its unsharded run with equal
+    jump_stats, the occupancy kernels launched per cell."""
+    rows, total = [], {k.name: 0 for k in kernels.KERNELS}
+
+    def add(row_launches):
+        row, launches = row_launches
+        rows.append(row)
+        for k, v in launches.items():
+            total[k] += v
+
+    add(_mesh_pair("pingpong", _replicated(lambda: make_pingpong(PP_NODES), MESH_PP_REPLICAS),
+                   PP_MS, True, 2, 4, _cards(8)))
+    for name in ("pack_occupied", "lowest_set_bit"):
+        if rows[-1]["launches"][name] <= 0:
+            raise AssertionError(f"mesh pingpong: {name} never launched")
+    add(_mesh_pair("p2pflood", _replicated(lambda: make_p2pflood(capacity=FLOOD_CAPACITY),
+                                           MESH_FLOOD_REPLICAS), FLOOD_MS, True, 2, 4, _cards(8)))
+    return {"rows": rows, "launches": total}
+
+
+def mesh_mixed() -> dict:
+    """Two devices that really differ: the registry's Handel and PingPong
+    at their analysis scale (R = 2, MESH_SMALL_MS) on (1, 2) and (2, 1)
+    over [cuda:0, cpu], each bitwise equal to its unsharded run on the
+    card — a cross-shard access that bypassed the exchange would fail
+    here with a device mismatch.  Then a bounded exchange: the
+    flagship's (2, 2) run with exchange_capacity=2 for MESH_BOUNDED_MS
+    completes and counts more displaced than the exact run of the same
+    states.  Neither is the mesh path's run, so no launches are kept."""
+    rows = []
+    for name in ("handel", "pingpong"):
+        entry = registry_batched_protocols.get(name)
+        for p_r, p_n in ((1, 2), (2, 1)):
+            row, _ = _mesh_pair(f"{name}_card_and_cpu", _replicated(entry.factory, 2),
+                                MESH_SMALL_MS, False, p_r, p_n, ["cuda:0", "cpu"])
+            rows.append(row)
+    net, state = make_handel(flagship_params(4096))
+    states = replicate_state(state, MESH_REPLICAS)
+    lay = make_mesh2d_layout(2, 2, _cards(4))
+    # the exact exchange's displaced count is the unsharded run's (the mesh
+    # phase holds the (2, 2) run bitwise to it), so the unsharded run is
+    # the reference
+    exact = net.run_ms_batched(states, MESH_BOUNDED_MS).proto["displaced"].cpu().tolist()
+    bnet = enable_node_sharding(net, lay.mesh, exchange_capacity=2)
+    out, wall, _ = _timed_call(
+        lambda: bnet.run_ms_batched(lay.place(bnet, states), MESH_BOUNDED_MS))
+    bounded = out.gather().proto["displaced"].cpu().tolist()
+    rows.append({"phase": "mesh_run", "case": "flagship_exchange_capacity_2", "layout": [2, 2],
+                 "replicas": MESH_REPLICAS, "ms": MESH_BOUNDED_MS, "wall_s": wall,
+                 "ms_per_tick": wall / MESH_BOUNDED_MS * 1e3, "displaced": bounded,
+                 "exact_displaced": exact})
+    emit(rows[-1])
+    if not all(b > e for b, e in zip(bounded, exact)):
+        raise AssertionError(f"mesh: bounded exchange displaced {bounded}, the exact run {exact}")
+    return {"rows": rows}
+
+
 # the phases from throughput on read no earlier phase's states (attack_env
 # only the flagship's done_at), so they run in LATER_POOL worker processes
 # at once, longest first, while the main process runs ethpow (whose exp
 # check has a worker of its own); the host's cores serve the loops'
-# launches, and the card serves the processes in turn
-LATER_POOL = 3
-LATER_PHASES = ("anim", "attack_env", "dfinity", "snowflake", "gsf", "casper", "sanfermin",
-                "slush", "handeleth2", "paxos", "miner_env", "cappos", "p2phandel", "enr",
-                "optimistic", "p2pflood", "throughput")
+# launches, and the card serves the processes in turn.  Five: the mesh
+# phases added ~400 s of work, and the mesh phase (~190-310 s, four
+# flagship cells a tick) is the pole the others fill in beside
+LATER_POOL = 5
+LATER_PHASES = ("mesh", "dfinity", "mesh_small", "casper", "attack_env", "anim", "mesh_mixed",
+                "snowflake", "slush", "handeleth2", "sanfermin", "gsf", "enr", "paxos",
+                "optimistic", "cappos", "p2phandel", "miner_env", "p2pflood", "throughput")
 LATER_RUNS = {
     "throughput": lambda done: throughput(), "dfinity": lambda done: dfinity(),
     "gsf": lambda done: gsf(), "p2phandel": lambda done: p2phandel(),
@@ -4534,7 +4788,8 @@ LATER_RUNS = {
     "p2pflood": lambda done: p2pflood(), "optimistic": lambda done: optimistic(),
     "cappos": lambda done: cappos(), "enr": lambda done: enr(),
     "miner_env": lambda done: miner_env(), "attack_env": attack_env,
-    "anim": lambda done: anim(),
+    "anim": lambda done: anim(), "mesh": lambda done: mesh(),
+    "mesh_small": lambda done: mesh_small(), "mesh_mixed": lambda done: mesh_mixed(),
 }
 
 
@@ -4597,7 +4852,7 @@ PHASES = ("kernels", "identity", "flagship", "profiling", "contracts", "telemetr
           "cities", "search", "pingpong", "faults_pingpong", "pingpong_tele", "throughput",
           "dfinity", "gsf", "p2phandel", "handeleth2", "sanfermin", "casper", "paxos", "slush",
           "snowflake", "p2pflood", "optimistic", "cappos", "enr", "ethpow", "miner_env",
-          "attack_env", "anim", "durable", "serve")
+          "attack_env", "anim", "mesh", "mesh_small", "mesh_mixed", "durable", "serve")
 
 
 @torch.inference_mode()
@@ -4685,12 +4940,16 @@ def main(argv) -> int:
     if chain is not None:
         runs.update(chain.join())
         lap("beside")  # the wait for the chain after the last phase
+    if "mesh" in runs and "mesh_small" in runs:
+        # one `mesh` path: the flagship's (2, 2) run and the (2, 4) runs
+        small = runs["mesh_small"].pop("launches")
+        runs["mesh"]["launches"] = {k: v + small[k] for k, v in runs["mesh"]["launches"].items()}
     emit({"phase": "phase_seconds", **seconds, "total": sum(seconds.values()),
           **{f"{name}_beside": s for name, s in (chain.seconds if chain else {}).items()},
           **{f"{name}_later": s for name, s in later_seconds.items()}})
     # every path's launches of every form, from that path's own run
     emit({"phase": "launches_by_path",
-          **{path: out["launches"] for path, out in runs.items()}})
+          **{path: out["launches"] for path, out in runs.items() if "launches" in out}})
     if only is None:
         rows["lowest_set_bit_andnot"].update(andnot_rows[-1])  # the top bucket's rows
         # pack_bool_words' path is P2PHandel's _pack: its numbers at the
@@ -4720,7 +4979,8 @@ def main(argv) -> int:
         # SanFermin's, Casper's — none — Paxos's and ENR's — none — among them)
         emit({"kernels": [
             {**{k: r[k] for k in keys},
-             "launches_by_path": {path: out["launches"][r["name"]] for path, out in runs.items()}}
+             "launches_by_path": {path: out["launches"][r["name"]]
+                                  for path, out in runs.items() if "launches" in out}}
             for r in rows.values()
         ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],

@@ -7,9 +7,11 @@ package's; placement commits every leaf to the group's device over an
 explicit CPU device list, bytes unchanged, from a state or from the
 host tree the Supervisor hands a placement.  The default device list is
 every visible CUDA device (none here), and a group of more than one
-device, or node_parallel > 1, raises naming the multi-device item.
+device, or with node_parallel > 1, has the JAX package's mesh shape,
+label and layout geometry.
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -70,16 +72,23 @@ def test_placement_keeps_every_leaf():
 
 
 def test_default_devices_are_cuda_and_multi_device_waits():
+    """The default device list is every visible CUDA device; a group of
+    several devices, or with node_parallel > 1, has the JAX package's
+    mesh, layout and sharding over its devices."""
     if not torch.cuda.is_available():
         with pytest.raises(ValueError, match="no devices visible"):
             tdg.make_device_groups(1)
-    with pytest.raises(NotImplementedError, match="Queue A 16"):
-        tdg.make_device_groups(1, devices=[CPU, CPU])
-    with pytest.raises(NotImplementedError, match="Queue A 16"):
-        tdg.make_device_groups(1, devices=[CPU, CPU], node_parallel=2)
+    jg = jdg.make_device_groups(1, devices=jax.devices()[:2])[0]
+    (pair,) = tdg.make_device_groups(1, devices=[CPU, CPU])
+    assert pair.label() == jg.label() == "group0[2dev]"
+    assert pair.mesh.devices.shape == jg.mesh.devices.shape == (2,)
+    assert pair.layout().geometry() == jg.layout().geometry()
+    assert pair.sharding().replica_axis == "replicas" and pair.sharding().node_axis is None
+    jg2 = jdg.make_device_groups(1, devices=jax.devices()[:2], node_parallel=2)[0]
+    (pair2,) = tdg.make_device_groups(1, devices=[CPU, CPU], node_parallel=2)
+    assert pair2.label() == jg2.label() == "group0[1x2]"
+    assert pair2.mesh.devices.shape == jg2.mesh.devices.shape == (1, 2)
+    assert pair2.layout().geometry() == jg2.layout().geometry()
     (group,) = tdg.make_device_groups(1, devices=[CPU])
-    for attr in ("layout", "sharding"):
-        with pytest.raises(NotImplementedError, match="Queue A 16"):
-            getattr(group, attr)()
-    with pytest.raises(NotImplementedError, match="Queue A 16"):
-        group.mesh
+    assert group.layout().geometry() == jdg.make_device_groups(
+        1, devices=jax.devices()[:1])[0].layout().geometry()

@@ -324,7 +324,8 @@ def test_serving_entry_points_default_to_cuda(monkeypatch):
              if p.parent.name in ("serve", "parallel")}
     assert names == {"serve/__init__.py", "serve/jobs.py", "serve/metrics.py",
                      "serve/scheduler.py", "parallel/__init__.py",
-                     "parallel/device_groups.py", "parallel/replica_shard.py"}
+                     "parallel/device_groups.py", "parallel/replica_shard.py",
+                     "parallel/exchange.py", "parallel/mesh2d.py", "parallel/node_shard.py"}
 
 
 def test_profiling_entry_points_default_to_cuda(monkeypatch):
@@ -389,7 +390,7 @@ def test_contract_entry_points_default_to_cuda(monkeypatch):
                      "analysis/contracts.py", "analysis/rng_audit.py",
                      "analysis/checkpoint_check.py", "analysis/serve_check.py",
                      "analysis/regressions_check.py", "analysis/registry_check.py",
-                     "analysis/cli.py"}
+                     "analysis/mesh_check.py", "analysis/cli.py"}
 
 
 def test_world_map_is_its_own():

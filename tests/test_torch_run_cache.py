@@ -8,7 +8,8 @@ same states.  The design differences are pinned: a program is the first
 call at a new input geometry, compile_seconds_total stays 0.0, there is
 no compile store, a program's summary holds `replicas` and the cost
 and memory of its first call (no memory statistics on the CPU), and a
-layout or shard_replicas raises until mesh2d is ported.  The engine's
+layout places the states (its geometry the key's third slot) as
+shard_replicas does.  The engine's
 stable_cache_key holds the JAX package's slots over the port's own
 fields, and the double-checked lock keeps a program a singleton under
 the interleaving that duplicates it without the recheck.
@@ -29,6 +30,7 @@ from wittgenstein_tpu.telemetry import TelemetryConfig as JTele
 from wittgenstein_tpu_torch.engine import replicate_state as trep
 from wittgenstein_tpu_torch.faults import FaultConfig as TFaultConfig
 from wittgenstein_tpu_torch.parallel import replica_shard as trc
+from wittgenstein_tpu_torch.parallel.mesh2d import PlacedState, make_mesh2d_layout
 from wittgenstein_tpu_torch.protocols.pingpong_batched import make_pingpong as tmake
 from wittgenstein_tpu_torch.runtime import locks as tlocks
 from wittgenstein_tpu_torch.telemetry import TelemetryConfig as TTele
@@ -129,10 +131,15 @@ def test_design_differences():
     assert set(prog["cost"]) == {"wall_seconds", "hand_launches"}
     assert prog["cost"]["wall_seconds"] > 0 and prog["cost"]["hand_launches"] == 0
     assert prog["memory"] is None  # no allocator statistics on the CPU
-    with pytest.raises(NotImplementedError, match="Queue A 16"):
-        trc.sharded_run_stats(net, trep(s, 2), 20, layout=object())
-    with pytest.raises(NotImplementedError, match="Queue A 16"):
-        trc.shard_replicas(trep(s, 2), mesh=None)
+    # a layout places the states and keys the entry on its geometry
+    lay = make_mesh2d_layout(2, 1, ["cpu", "cpu"])
+    out, stats = trc.sharded_run_stats(net, trep(s, 2), 20, layout=lay)
+    assert isinstance(out, PlacedState) and out.layout is lay
+    ref, ref_stats = trc.sharded_run_stats(net, trep(s, 2), 20)
+    assert all(torch.equal(v, stats[k]) for k, v in ref_stats.items())
+    assert {key[2] for key in trc._RUN_CACHE} == {None, lay.geometry()}
+    rows = trc.shard_replicas(trep(s, 2), lay.mesh)
+    assert isinstance(rows, PlacedState) and rows.cells[1][0].time.shape == (1,)
     trc.clear_run_cache()
 
 

@@ -1,20 +1,21 @@
 """Command line of the contract checks: `python -m wittgenstein_tpu_torch.analysis`.
 
-Runs six passes and prints findings as `path:line: RULE [sev] msg` (or
+Runs seven passes and prints findings as `path:line: RULE [sev] msg` (or
 JSONL with --format json):
 
   1. contract checks on concrete steps       (SL401-SL404, SL406, SL407,
                                               SL701, SL901, SL1201)
   2. beat RNG audit                          (SL405)
   3. checkpoint completeness                 (SL501)
-  4. serve scheduler batching contract       (SL801)
-  5. pinned-regression audit                 (SL1401)
-  6. registry/test coverage meta-rule        (SL301)
+  4. 2D-mesh replicated-leaf audit           (SL1001)
+  5. serve scheduler batching contract       (SL801)
+  6. pinned-regression audit                 (SL1401)
+  7. registry/test coverage meta-rule        (SL301)
 
-Passes 1-4 and the lowering depth of 5 build every registered protocol
+Passes 1-5 and the lowering depth of 6 build every registered protocol
 on `--device` (CUDA unless `cpu`) and run its hooks; each entry is built
 once and shared by the passes.  `--skip-contracts` runs only the passes
-that build nothing: 6, and 5 at its structural depth.
+that build nothing: 7, and 6 at its structural depth.
 
 Exit status: 0 when clean; 1 when any ERROR finding (or, with --strict,
 any finding at all) survives; 2 on usage errors.
@@ -31,7 +32,7 @@ from typing import List, Optional
 
 from .findings import Finding, Severity
 
-PASSES = ("contracts", "rng", "checkpoint", "serve", "regressions", "registry")
+PASSES = ("contracts", "rng", "checkpoint", "mesh", "serve", "regressions", "registry")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -75,6 +76,7 @@ def run(root: str = ".", device=None, skip_contracts: bool = False,
     from ..engine.core import resolve_device
     from .checkpoint_check import check_built_checkpoint
     from .contracts import build_entry, run_checks
+    from .mesh_check import check_built_mesh, stale_exclusions
     from .regressions_check import check_regressions
     from .registry_check import check_registry_coverage
     from .rng_audit import audit_built
@@ -110,6 +112,15 @@ def run(root: str = ".", device=None, skip_contracts: bool = False,
         timed("contracts", len(entries), lambda: per_entry(run_checks))
         timed("rng", len(entries), lambda: per_entry(audit_built))
         timed("checkpoint", len(entries), lambda: per_entry(check_built_checkpoint))
+        seen: set = set()
+
+        def mesh():
+            out = per_entry(lambda name, net, state, root:
+                            check_built_mesh(name, net, state, root, seen))
+            # stale exclusions mean something only over the whole registry
+            return out + (stale_exclusions(seen, root) if entries and not protocols else [])
+
+        timed("mesh", len(entries), mesh)
         built.clear()
         timed("serve", 1, lambda: check_serve_scheduler(root, names=protocols, device=dev))
     pins = os.path.join(root, "wittgenstein_tpu_torch", "scenarios", "regressions")

@@ -29,6 +29,13 @@ Layout compatibility is the JAX package's: an unknown stamp never loads;
 cast down under a range check with the int32 maximum (the "never"
 sentinel) remapped to the narrow dtype's maximum.
 
+Mesh portability, as in the JAX package: a placed state
+(parallel.mesh2d.PlacedState) saves as the plain host bytes of its
+gathered state, so the file carries no mesh; loading onto a placed
+template places the loaded leaves on the template's layout — the JAX
+package's resharding on load.  A save from one layout resumes on any
+other, or unplaced, bitwise.
+
 `CheckpointManager` keeps numbered checkpoints in one directory with an
 atomic `LATEST` pointer and bounded retention, and restores the newest
 one that loads, walking back past corrupt files.
@@ -178,11 +185,21 @@ def manifest_trace(manifest: Optional[dict]) -> dict:
     return {k: meta[k] for k in ("run_id", "job_id", "tenant_id") if meta.get(k) is not None}
 
 
+def _placed(state: Any) -> bool:
+    """Whether `state` is a parallel.mesh2d.PlacedState (imported here:
+    the parallel package imports this module's callers)."""
+    from ..parallel.mesh2d import PlacedState
+
+    return isinstance(state, PlacedState)
+
+
 def save_state(state: Any, dest: str, meta: Optional[dict] = None) -> dict:
-    """Write a state (a SimState, an EthPowState, or a dict of arrays or
-    tensors) to `dest` (.npz), keyed by leaf path, with its manifest,
-    atomically: a crashed writer leaves at most a stray temp file.
-    Returns the manifest."""
+    """Write a state (a SimState, a placed state, an EthPowState, or a
+    dict of arrays or tensors) to `dest` (.npz), keyed by leaf path, with
+    its manifest, atomically: a crashed writer leaves at most a stray
+    temp file.  Returns the manifest."""
+    if _placed(state):
+        state = state.gather()
     arrays = {LAYOUT_KEY: np.asarray(ENGINE_LAYOUT)}
     leaf_info: Dict[str, dict] = {}
     for key, leaf in _host_leaves(state):
@@ -302,7 +319,11 @@ def load_state(template: Any, src: str, verify: bool = True) -> Any:
     Shapes and dtypes must match the template's leaves, except that a
     compat-era checkpoint's wider integers cast down (`_coerce_dtype`).
     With `verify` every leaf is checked against its manifest crc32,
-    computed on the stored bytes before any cast."""
+    computed on the stored bytes before any cast.  A placed template
+    gets its loaded leaves placed on its own layout."""
+    if _placed(template):
+        loaded = load_state(template.gather(), src, verify)
+        return template.layout.place(template, loaded)
     with _open_npz(src) as data:
         found_layout = str(data[LAYOUT_KEY]) if LAYOUT_KEY in data else None
         if found_layout is not None:

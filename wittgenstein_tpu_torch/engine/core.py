@@ -38,6 +38,17 @@ interval; it raises on those.  Its one step is the JAX package's fused
 step (`fuse_step=True`), with the unfused step's exact row clear (see
 `_clear_visited_rows`).
 
+`step`, `run_ms` and `run_ms_batched` also take a placed state
+(parallel.mesh2d): each mesh cell runs the same loop on its own rows
+with an engine copy that knows its cell (`cell`).  The loops' decisions
+over the whole batch (clock groups, the beat, the stop test, the
+consensus-jump tick) are reduced over every cell; on a cell whose node
+axis is active (`node_block`) the hooks see the block's node rows, the
+send and delivery paths read every node's latency inputs and `down`
+from the row's copies, the block takes its own senders' and receivers'
+counters, and per-replica answers over nodes are all-reduced over the
+row (parallel.node_shard lists the exchange points).
+
 Every function is functional: it never writes into a tensor it was given,
 so a caller's state stays valid after a run, as with JAX.
 """
@@ -286,6 +297,13 @@ class BatchedNetwork:
                 else overflow_capacity
             )
         self._window()  # a quantum wider than the wheel fails here
+        # the mesh: `cell` is set on an engine copy that runs one cell of a
+        # placed state (parallel.mesh2d.run_placed); node_shard's
+        # enable_node_sharding names the node mesh and bounds the exchange
+        self.cell = None
+        self.node_mesh = None
+        self.node_axis = None
+        self.exchange_capacity = None
 
     # -- state construction (host-side) -------------------------------------
     def init_state(self, cols: dict, seed: int, proto: Any, down=None) -> SimState:
@@ -358,12 +376,17 @@ class BatchedNetwork:
         entry keeps the engine alive, so the ids cannot be recycled while
         it lives.  Where the JAX package has its bitset backend the port
         has the engine's device: the tensors' device picks the kernel
-        form."""
+        form.  A node-sharded copy (node_shard.enable_node_sharding)
+        ends with its mesh's identity."""
         static = self.stable_cache_key()
-        return static[:2] + (id(self.protocol), id(self.latency)) + static[2:]
+        key = static[:2] + (id(self.protocol), id(self.latency)) + static[2:]
+        # a node-sharded copy (enable_node_sharding) also names its mesh
+        return key if self.node_mesh is None else key + (id(self.node_mesh),)
 
     def stable_cache_key(self) -> tuple:
-        """cache_key less the process-lifetime id() components."""
+        """cache_key less the process-lifetime id() components; its last
+        slot is the node axis (None unless enable_node_sharding named
+        one)."""
         return (
             type(self.protocol).__name__,
             repr(getattr(self.protocol, "params", None)),
@@ -380,6 +403,7 @@ class BatchedNetwork:
             self.batched_jumps,
             self.lanes.key(),
             str(self.device),
+            self.node_axis,
         )
 
     # -- partitions (Network.partition, Network.java:693-707) ----------------
@@ -389,6 +413,73 @@ class BatchedNetwork:
         (Network.partitionId, Network.java:639-649); x_col is [R, ...]."""
         px = state.partition_x.view((x_col.shape[0],) + (1,) * (x_col.dim() - 1) + (-1,))
         return (px <= x_col[..., None]).sum(-1).to(torch.int32)
+
+    # -- mesh cells (parallel.mesh2d, parallel.node_shard) -------------------
+    @property
+    def node_block(self) -> bool:
+        """True on the engine of a cell whose node axis is active: its
+        node columns hold the block [cell.lo, cell.hi) of every node."""
+        return self.cell is not None and self.cell.nodes is not None
+
+    def node_ids(self, device) -> torch.Tensor:
+        """The global ids of this engine's node rows, int32: every node,
+        or a cell's block."""
+        if self.cell is None:
+            return torch.arange(self.n_nodes, dtype=torch.int32, device=device)
+        return self.cell.node_ids()
+
+    def _own(self, idx: torch.Tensor):
+        """(positions in this engine's node rows, in-block mask) of global
+        node ids; positions outside the block are clamped into it, so the
+        caller masks them."""
+        c = self.cell
+        pos = idx - c.lo
+        return pos.clamp(0, c.hi - c.lo - 1), (pos >= 0) & (pos < c.hi - c.lo)
+
+    def to_local(self, idx: torch.Tensor) -> torch.Tensor:
+        """Global node ids as positions in this engine's node rows (the
+        ids themselves off a node block); an id outside the block is
+        clamped into it, so its row must be masked."""
+        return self._own(idx)[0] if self.node_block else idx
+
+    def _row(self, x: torch.Tensor, op: str) -> torch.Tensor:
+        if not self.node_block:
+            return x
+        from ..parallel.exchange import all_reduce
+
+        return all_reduce(self.cell.nodes, self.cell.node_rank, x, op)
+
+    def row_any(self, x: torch.Tensor) -> torch.Tensor:
+        """`x` or-ed over the node blocks of this replica row (itself off a
+        node block): merges the blocks' masks over rows every block sees."""
+        return self._row(x, "any")
+
+    def row_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """Integer `x` summed over the node blocks of this replica row."""
+        return self._row(x, "sum")
+
+    def _all_done(self, s: SimState) -> torch.Tensor:
+        """protocol.all_done per replica, over every node block (a block's
+        hook is handed the engine, to find its block)."""
+        if not self.node_block:
+            return self.protocol.all_done(s)
+        return self._row(self.protocol.all_done(s, net=self), "all")
+
+    def _world(self, x: torch.Tensor, op: str) -> torch.Tensor:
+        """`x` reduced over every cell of a placed run (itself otherwise):
+        the loops' decisions over the whole batch."""
+        if self.cell is None:
+            return x
+        from ..parallel.exchange import all_reduce
+
+        return all_reduce(self.cell.world, self.cell.world_rank, x, op)
+
+    def _statics(self, state: SimState):
+        """(latency inputs, down) of every node, [R, N]: the state's own
+        columns, or a node block's row copies."""
+        if self.node_block:
+            return self.cell.static, self.cell.down
+        return LatencyStatic(state.x, state.y, state.extra_latency, state.city_idx), state.down
 
     # -- telemetry -------------------------------------------------------------
     def with_telemetry(self, state: SimState, telemetry: TelemetryConfig):
@@ -442,7 +533,8 @@ class BatchedNetwork:
         return net, state._replace(faults=fs)
 
     # -- the send path (createMessageArrival, Network.java:469-487) ----------
-    def latency_arrivals(self, state, mask, from_idx, to_idx, send_time, mtype, t: int):
+    def latency_arrivals(self, state, mask, from_idx, to_idx, send_time, mtype, t: int,
+                         local_rows: bool = False):
         """The createMessageArrival kernel shared by the generic store and
         protocol-specific message channels: ticks sender counters (even for
         dropped sends, Network.java:476-477), samples the latency model via
@@ -450,16 +542,22 @@ class BatchedNetwork:
         applies the partition, down and discard-time filters.  mask is
         [R, K]; send_time an int or a tensor that broadcasts to [R, K];
         mtype an int or a per-row tensor; `t` the tick that sends (the
-        fault lanes' clock).  Returns (state, ok, arrival)."""
+        fault lanes' clock).  On a node block, `local_rows` marks rows of
+        this block's own senders (a protocol channel's send), whose
+        telemetry counts are summed over the row's blocks; otherwise the
+        rows are the row's, the same on every block.  Returns (state, ok,
+        arrival)."""
         state = state._replace(send_ctr=state.send_ctr + 1)
         return self._send_rows(state, mask, from_idx, to_idx, send_time, mtype,
-                               state.send_ctr[:, None], t)
+                               state.send_ctr[:, None], t, local_rows)
 
-    def _send_rows(self, state, mask, from_idx, to_idx, send_time, mtype, ctr, t: int):
+    def _send_rows(self, state, mask, from_idx, to_idx, send_time, mtype, ctr, t: int,
+                   local_rows: bool = False):
         """latency_arrivals' body, with the send counter each row hashes
         given as `ctr` (broadcasting to [R, K]) and send_ctr left as it is:
         rows of several emissions go through in one call, each row with
-        its own emission's counter."""
+        its own emission's counter.  On a node block the sender counters
+        tick for the block's own senders only."""
         r, k = mask.shape
         from_idx = from_idx.to(torch.int32).expand(r, k)
         to_idx = to_idx.to(torch.int32).expand(r, k)
@@ -471,9 +569,13 @@ class BatchedNetwork:
         if isinstance(send_time, torch.Tensor):
             send_time = send_time.to(torch.int32).expand(r, k)
         m32 = mask.to(torch.int32)
+        sender = from_idx
+        if self.node_block:
+            sender, own = self._own(from_idx)
+            m32 = m32 * own
         state = state._replace(
-            msg_sent=add_at(state.msg_sent, from_idx, m32),
-            bytes_sent=add_at(state.bytes_sent, from_idx, m32 * size),
+            msg_sent=add_at(state.msg_sent, sender, m32),
+            bytes_sent=add_at(state.bytes_sent, sender, m32 * size),
         )
         # per-event seed: send_ctr decorrelates same-tick emissions, the
         # destination id the rows of one emission (the JAX package's
@@ -487,7 +589,7 @@ class BatchedNetwork:
             to_idx,
         )
         delta = pseudo_delta(to_idx, seed)
-        static = LatencyStatic(state.x, state.y, state.extra_latency, state.city_idx)
+        static, down = self._statics(state)
         if self.throughput is not None:
             # the size-dependent Mathis delay, priced off this network's
             # latency model
@@ -496,12 +598,12 @@ class BatchedNetwork:
         else:
             lat = vec_latency(self.latency, static, from_idx, to_idx, delta)
         arrival = (send_time + lat).to(torch.int32)
-        pid_f = self.partition_id(state, take(state.x, from_idx))
-        pid_t = self.partition_id(state, take(state.x, to_idx))
+        pid_f = self.partition_id(state, take(static.x, from_idx))
+        pid_t = self.partition_id(state, take(static.x, to_idx))
         routed = (
             mask
-            & ~take(state.down, from_idx)
-            & ~take(state.down, to_idx)
+            & ~take(down, from_idx)
+            & ~take(down, to_idx)
             & (pid_f == pid_t)
         )
         # the default discard time, INT_MAX, filters nothing a model gives,
@@ -531,10 +633,13 @@ class BatchedNetwork:
             # counted here, after the fault lanes, as in the JAX package
             tele = state.tele
             mrows = mtype if isinstance(mtype, torch.Tensor) else torch.full_like(from_idx, mtype)
-            state = state._replace(tele=tele._replace(
-                lat_sent=count_by_type(tele.lat_sent, ok, mrows),
-                lat_filtered=count_by_type(tele.lat_filtered, mask & ~ok, mrows),
-            ))
+            sent = count_by_type(tele.lat_sent, ok, mrows)
+            filtered = count_by_type(tele.lat_filtered, mask & ~ok, mrows)
+            if local_rows and self.node_block:
+                # a block's own rows: the row's counts are the blocks' sum
+                sent = tele.lat_sent + self.row_sum(sent - tele.lat_sent)
+                filtered = tele.lat_filtered + self.row_sum(filtered - tele.lat_filtered)
+            state = state._replace(tele=tele._replace(lat_sent=sent, lat_filtered=filtered))
         return state, ok, arrival
 
     def apply_emission(self, state: SimState, em: Emission, t: int) -> SimState:
@@ -781,9 +886,10 @@ class BatchedNetwork:
         view_to = view(state.msg_to, state.ovf_to).to(torch.int32)
         view_arrival = view(state.msg_arrival, state.ovf_arrival)
         due = view(state.msg_valid, state.ovf_valid) & (view_arrival <= t)
-        pid_f = self.partition_id(state, take(state.x, view_from))
-        pid_t = self.partition_id(state, take(state.x, view_to))
-        deliver = due & ~take(state.down, view_to) & (pid_f == pid_t)
+        static, down = self._statics(state)
+        pid_f = self.partition_id(state, take(static.x, view_from))
+        pid_t = self.partition_id(state, take(static.x, view_to))
+        deliver = due & ~take(down, view_to) & (pid_f == pid_t)
         fault_supp = None
         if self.faults is not None:
             # fault choke point 2 (arrival): a fault-crashed destination or
@@ -809,9 +915,15 @@ class BatchedNetwork:
         vview, due, deliver, rows, fault_supp = self.delivery_view(state, t)
         view_to, view_type = vview.msg_to, vview.msg_type
         sizes = self._msg_sizes[view_type.to(torch.int64)]
-        dm = deliver & (sizes > 0)
+        # on a node block the view is the row's, and the block takes the
+        # rows of its own receivers
+        own, receiver = deliver, view_to
+        if self.node_block:
+            receiver, mine = self._own(view_to)
+            own = deliver & mine
+        dm = own & (sizes > 0)
         received, bytes_received = add_masked((state.msg_received, state.bytes_received),
-                                              view_to, (dm.to(torch.int32), sizes), dm)
+                                              receiver, (dm.to(torch.int32), sizes), dm)
         vstate = vview._replace(msg_received=received, bytes_received=bytes_received)
         if self.telemetry is not None:
             # due rows leave the store once, as delivered or as discards at
@@ -825,7 +937,7 @@ class BatchedNetwork:
             fs = vstate.faults
             vstate = vstate._replace(faults=fs._replace(
                 dropped_by_fault=count_by_type(fs.dropped_by_fault, fault_supp, view_type)))
-        pstate, emissions = self.protocol.deliver(self, vstate, deliver, t)
+        pstate, emissions = self.protocol.deliver(self, vstate, own, t)
         return self._clear_visited_rows(pstate, state, rows, due), emissions
 
     def _clear_visited_rows(self, pstate, state, rows, due) -> SimState:
@@ -906,7 +1018,8 @@ class BatchedNetwork:
             return state
         tele = state.tele._replace(ticks=state.tele.ticks + 1)
         if self.telemetry.snapshots:
-            tele = record_snapshot(tele, self.telemetry, state, t)
+            tele = record_snapshot(tele, self.telemetry, state, t,
+                                   row_sum=self.row_sum if self.node_block else None)
         return state._replace(tele=tele)
 
     # -- the phases the per-phase timing runs ----------------------------------
@@ -961,6 +1074,8 @@ class BatchedNetwork:
     def step(self, states: SimState) -> SimState:
         """Advance a batched state by one millisecond, each replica at its
         own clock."""
+        if not isinstance(states, SimState):
+            return _run_placed(self, states, "step")
         parts = [(idx, self._tick(self._rows(states, idx), t))
                  for t, idx in self._clock_groups(states)]
         return self._merge(states, parts)._replace(time=states.time + 1)
@@ -1040,7 +1155,6 @@ class BatchedNetwork:
         count, each replica's last executed tick (-1 if none) — with
         stop_when_done, the tick its outcome was decided — and each
         replica's count of executed ticks."""
-        proto = self.protocol
         ends = states.time + ms
         last_tick = torch.full_like(states.time, -1)
         ticks = torch.zeros_like(states.time)
@@ -1048,8 +1162,8 @@ class BatchedNetwork:
         while True:
             alive = s.time < ends
             if stop_when_done:
-                alive = alive & ~proto.all_done(s) & (self.pending_messages(s) > 0)
-            t = int(torch.where(alive, s.time, INT_MAX).amin())
+                alive = alive & ~self._all_done(s) & (self.pending_messages(s) > 0)
+            t = int(self._world(torch.where(alive, s.time, INT_MAX).amin(), "min"))
             if t == INT_MAX:
                 break
             active = alive & (s.time == t)
@@ -1068,6 +1182,8 @@ class BatchedNetwork:
         own once its `all_done` holds; its state freezes there while the
         others step on.  The clock ends at time + ms either way.  An
         event-driven protocol runs the consensus-jump loop instead."""
+        if not isinstance(states, SimState):
+            return _run_placed(self, states, "run_ms", ms, stop_when_done)
         if self.protocol.TICK_INTERVAL is None:
             return self._run_ms_jumps(states, ms, stop_when_done)
         parts = [(idx, self._run_ungated(self._rows(states, idx), t0, ms, stop_when_done))
@@ -1079,7 +1195,7 @@ class BatchedNetwork:
         is left as it was."""
         for i in range(ms):
             if stop_when_done:
-                alive = ~self.protocol.all_done(s)
+                alive = ~self._all_done(s)
                 if not bool(alive.any()):
                     break
                 s = _lane_select(alive, self._tick(s, t0 + i), s)
@@ -1106,7 +1222,11 @@ class BatchedNetwork:
         every group when any group's clock beats, as JAX's any-replica
         test fires it for every lane (tick_beat masks itself to each
         replica's own beats), and a group whose replicas are all done
-        keeps stepping until the whole batch is."""
+        keeps stepping until the whole batch is.  On a cell of a placed
+        state the clocks, the beat and the stop test are the whole
+        batch's, over every cell."""
+        if not isinstance(states, SimState):
+            return _run_placed(self, states, "run_ms_batched", ms, stop_when_done)
         proto = self.protocol
         period, residues = proto.BEAT_PERIOD, proto.BEAT_RESIDUES
         if proto.TICK_INTERVAL is None or not period or residues is None \
@@ -1115,13 +1235,15 @@ class BatchedNetwork:
         residues = frozenset(int(r) for r in residues)
         groups = self._clock_groups(states)
         subs = [self._rows(states, idx) for _, idx in groups]
+        clocks = self._batch_clocks(states, groups)
         for i in range(ms):
             if stop_when_done:
-                done = [proto.all_done(s).all() for s in subs]
-                if bool(done[0] if len(done) == 1 else torch.stack(done).all()):
+                done = [self._all_done(s).all() for s in subs]
+                done = done[0] if len(done) == 1 else torch.stack(done).all()
+                if bool(self._world(done, "all")):
                     break
             # lax.rem truncates toward zero, like math.fmod
-            beat = any(int(math.fmod(t0 + i, period)) in residues for t0, _ in groups)
+            beat = any(int(math.fmod(t0 + i, period)) in residues for t0 in clocks)
             for g, (t0, _) in enumerate(groups):
                 t = t0 + i
                 s = self._step_core(subs[g], t)
@@ -1133,6 +1255,16 @@ class BatchedNetwork:
                 subs[g] = self._tele_tick(s, t)
         parts = [(idx, s) for (_, idx), s in zip(groups, subs)]
         return self._merge(states, parts)._replace(time=states.time + ms)
+
+    def _batch_clocks(self, states: SimState, groups) -> list:
+        """The distinct clocks of the whole batch: the groups' own, or on
+        a cell of a placed state every cell's, gathered once."""
+        if self.cell is None:
+            return [t0 for t0, _ in groups]
+        from ..parallel.exchange import all_gather
+
+        (times,) = all_gather(self.cell.world, self.cell.world_rank, [states.time])
+        return sorted(set(times.tolist()))
 
     def run_ms_occupancy(self, states: SimState, ms: int):
         """`ms` plain per-tick steps, no empty-ms jumps, so every tick's
@@ -1158,6 +1290,16 @@ class BatchedNetwork:
             ovf = hw_ovf if idx is None else ovf.index_copy(0, idx, hw_ovf)
         out = self._merge(states, parts)._replace(time=states.time + ms)
         return out, {"wheel_fill_hwm": fill, "overflow_hwm": ovf}
+
+
+def _run_placed(net, placed, method: str, *args):
+    """A run on a placed state (parallel.mesh2d.PlacedState): each mesh
+    cell runs `method` on its own rows."""
+    from ..parallel.mesh2d import PlacedState, run_placed
+
+    if not isinstance(placed, PlacedState):
+        raise TypeError(f"expected a SimState or a PlacedState, got {type(placed).__name__}")
+    return run_placed(net, placed, method, *args)
 
 
 def replicate_state(state: SimState, n_replicas: int, seeds=None) -> SimState:

@@ -145,8 +145,13 @@ def state_to_numpy(state: SimState) -> dict:
     dtypes (proto as a nested dict; empty side-cars stay ()).  The word
     leaves are those of the ported protocol the proto's keys identify
     (`protocol_of`); a state of no such protocol has none.  An EthPowState
-    gives the dict of its leaves."""
+    gives the dict of its leaves; a placed state (parallel.mesh2d) that of
+    its gathered state."""
+    from .parallel.mesh2d import PlacedState
     from .protocols.ethpow_batched import EthPowState
+
+    if isinstance(state, PlacedState):
+        state = state.gather()
 
     if isinstance(state, EthPowState):
         return {f: _to_numpy(v, False) for f, v in state._asdict().items()}

@@ -6,14 +6,20 @@ package's partition (parallel/device_groups.py): a contiguous slice of
 the devices, so each scheduler lane places its batches on its own
 devices and up to G families execute at once ("wave packing").
 
-The port's groups hold one device each: `place` commits every leaf of a
-state to the group's device.  A group of more than one device, or
-`node_parallel > 1`, splits one batch or one simulation's nodes across
-devices, which waits for the multi-device slice (ROADMAP Queue A 16:
-mesh2d, node_shard): constructing one raises, and so do `mesh`,
-`layout` and `sharding`.  `make_device_groups` keeps the JAX package's
-checks and messages; its default device list is every visible CUDA
-device.
+A lane's mesh can itself be 2D: with ``node_parallel=P`` the group's
+devices fold into a ``(len(devices)//P, P)`` (replicas, nodes) sub-mesh
+(parallel.mesh2d), so one lane runs replica rows whose node state is
+split P-ways.  With the default ``node_parallel=1`` the group is a flat
+one-axis lane.
+
+Placement, as in the JAX package: ``place`` splits the stacked state's
+replica rows over the group's devices when the replica count divides the
+group's replica rows (a mesh2d.PlacedState), adding the node axis when
+``net`` is given and the group is 2D, and otherwise commits the whole
+batch to the group's first device.  A group of one device commits the
+batch to that device as a plain SimState.  The devices may repeat (one
+card, or the CPU, several times).  The default device list is every
+visible CUDA device (`visible_devices`).
 """
 
 from __future__ import annotations
@@ -21,17 +27,19 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..engine.core import SimState, map_state
 from ..interop import state_from_numpy
-
-_MULTI_ITEM = "the multi-device slice (ROADMAP Queue A 16: mesh2d, node_shard)"
+from . import exchange
+from .mesh2d import DeviceMesh, MeshLayout
 
 
 @dataclasses.dataclass(frozen=True)
 class DeviceGroup:
-    """One lane's slice of the machine: index + devices."""
+    """One lane's slice of the machine: index + devices + its own
+    replica-axis mesh — 2D (replicas, nodes) when ``node_parallel`` > 1."""
 
     index: int
     devices: tuple
@@ -47,11 +55,6 @@ class DeviceGroup:
                 f"node_parallel={self.node_parallel} must divide the "
                 f"group's device count ({len(self.devices)})"
             )
-        if len(self.devices) > 1 or self.node_parallel > 1:
-            raise NotImplementedError(
-                f"a device group of {len(self.devices)} devices with "
-                f"node_parallel={self.node_parallel} needs {_MULTI_ITEM}"
-            )
         object.__setattr__(self, "devices", tuple(torch.device(d) for d in self.devices))
 
     @property
@@ -59,33 +62,61 @@ class DeviceGroup:
         return len(self.devices) // self.node_parallel
 
     @property
-    def mesh(self):
-        raise NotImplementedError(f"a group's mesh needs {_MULTI_ITEM}")
+    def mesh(self) -> DeviceMesh:
+        grid = np.empty(len(self.devices), dtype=object)
+        grid[:] = list(self.devices)
+        if self.node_parallel > 1:
+            return DeviceMesh(grid.reshape(self.replica_parallel, self.node_parallel),
+                              ("replicas", "nodes"))
+        return DeviceMesh(grid, ("replicas",))
 
-    def layout(self):
-        raise NotImplementedError(f"a group's layout needs {_MULTI_ITEM}")
+    def layout(self) -> MeshLayout:
+        """The group's mesh as a mesh2d.MeshLayout — node axis active only
+        when the group folds one in."""
+        return MeshLayout(
+            self.mesh,
+            replica_axis="replicas",
+            node_axis="nodes" if self.node_parallel > 1 else None,
+        )
 
-    def sharding(self):
-        raise NotImplementedError(f"a group's sharding needs {_MULTI_ITEM}")
+    def sharding(self) -> MeshLayout:
+        """The replica-only layout over the group's mesh (the JAX
+        package's `NamedSharding(mesh, P("replicas"))`)."""
+        return MeshLayout(self.mesh, replica_axis="replicas", node_axis=None)
 
     def place(self, states, net=None):
-        """Commit a stacked state (leading replica axis) to this group's
-        device: a SimState, or the host tree of numpy leaves in the JAX
-        package's layout that the Supervisor hands a placement.  `net`
-        is accepted for the JAX package's signature: a one-device group
-        has no node axis to classify columns for."""
-        del net
+        """Commit a stacked state (leading replica axis) to this group: a
+        SimState, or the host tree of numpy leaves in the JAX package's
+        layout that the Supervisor hands a placement.  Replica-split when
+        the leading axis divides the group's replica rows, node columns
+        split too with ``net`` and a 2D group, whole-batch on the first
+        device otherwise (correct either way)."""
         dev = self.devices[0]
-        if isinstance(states, SimState):
-            return map_state(lambda a: a.to(dev), states)
-        return state_from_numpy(states, dev)
+        host = not isinstance(states, SimState)
+        if host:
+            states = state_from_numpy(states, dev)
+        n_rows = int(states.time.shape[0]) if states.time.dim() else 0
+        if len(self.devices) > 1 and n_rows and n_rows % self.replica_parallel == 0:
+            if net is not None and self.node_parallel > 1 \
+                    and net.n_nodes % self.node_parallel == 0:
+                return self.layout().place(net, states)
+            return self.sharding().place(None, states)
+        return states if host else map_state(lambda a: exchange.copy_to(a, dev), states)
 
     def label(self) -> str:
-        return f"group{self.index}[{len(self.devices)}dev]"
+        mesh_tag = (
+            f"{self.replica_parallel}x{self.node_parallel}"
+            if self.node_parallel > 1
+            else f"{len(self.devices)}dev"
+        )
+        return f"group{self.index}[{mesh_tag}]"
 
 
-def visible_devices() -> list:
-    """Every visible CUDA device, in index order."""
+def visible_devices(kind: str = "cuda") -> list:
+    """Every visible device of `kind`: the CUDA devices in index order,
+    or the one CPU."""
+    if kind == "cpu":
+        return [torch.device("cpu")]
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
@@ -95,9 +126,10 @@ def make_device_groups(
     node_parallel: int = 1,
 ) -> List[DeviceGroup]:
     """Partition ``devices`` (default: every visible CUDA device) into
-    ``n_groups`` contiguous equal slices.  Group count must divide the
-    device count and node_parallel must divide the per-group size — an
-    uneven fleet would give lanes different program geometries and
+    ``n_groups`` contiguous equal slices, each folded into a (replicas,
+    nodes) sub-mesh when ``node_parallel`` > 1.  Group count must divide
+    the device count and node_parallel must divide the per-group size —
+    an uneven fleet would give lanes different program geometries and
     break the one-program-per-family contract."""
     if n_groups < 1:
         raise ValueError(f"n_groups must be >= 1, got {n_groups}")

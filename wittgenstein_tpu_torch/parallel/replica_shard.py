@@ -21,13 +21,20 @@ counters with these design differences:
   first call (profiling.xla_cost: wall seconds, hand-written kernel
   launches, the allocator's statistics on a card), where the JAX
   package's holds its compiled program's XLA cost and memory analyses;
-- `layout=` and `shard_replicas` place states on a device mesh, which
-  waits for the multi-device slice (ROADMAP Queue A 16, mesh2d): they
-  raise.
+- with a `layout=` (a mesh2d.MeshLayout) an entry places every call's
+  states on that layout and runs the placed state, one engine loop per
+  mesh cell; the layout's geometry is the key's third slot, as in the
+  JAX package's `_run_and_reduce`, so a fresh layout of one geometry
+  hits the entry and (2, 4) and (4, 2) are two entries.  A program's
+  signature is then the layout's geometry and every cell's leaves.
 
-The statistics are the JAX package's five, reduced on the state's
-device: `done_min`, `done_max`, `done_avg`, `msg_rcv_avg` and
-`all_done`, as 0-d tensors of its dtypes.
+The statistics are the JAX package's five: `done_min`, `done_max`,
+`done_avg`, `msg_rcv_avg` and `all_done`, as 0-d tensors of its dtypes.
+On one device they are reduced there; on a placed state each cell
+reduces its own rows and nodes to integer partials (counts and sums,
+min, max, all), the partials are combined on the first cell's device,
+and the two means divide the combined integer totals once, so they
+equal the unsharded run's bit for bit.
 """
 
 from __future__ import annotations
@@ -41,14 +48,14 @@ from ..engine.core import INT_MAX
 from ..profiling.xla_cost import compiled_cost_summary, record_call
 from ..runtime.locks import make_lock, yield_point
 from ..runtime.supervisor import iter_leaves
-
-_MESH_ITEM = "the multi-device slice (ROADMAP Queue A 16: mesh2d)"
+from . import exchange
+from .mesh2d import MeshLayout, PlacedState
 
 
 def shard_replicas(states, mesh, axis: str = "replicas"):
-    """Place a stacked state on a device mesh, sharded along `axis`:
-    waits for mesh2d."""
-    raise NotImplementedError(f"shard_replicas needs a device mesh, {_MESH_ITEM}")
+    """Place a stacked state with leading replica axis onto the mesh,
+    split along `axis` (a layout without a node axis)."""
+    return MeshLayout(mesh, replica_axis=axis, node_axis=None).place(None, states)
 
 
 # the cache, keyed EXPLICITLY on (net.cache_key(), sim_ms, layout) instead
@@ -94,14 +101,46 @@ def _run_stats(out) -> dict:
     }
 
 
-class _CachedRun:
-    """The cached entry for one (net.cache_key(), sim_ms): a callable that
-    runs `net.run_ms_batched(states, sim_ms)` and reduces the statistics,
-    and that registers one program per input geometry."""
+def _placed_stats(out: PlacedState) -> dict:
+    """_run_stats of a placed state: each cell's integer partials over
+    its rows and nodes (live count, done sum, received sum, done min and
+    max, all done), combined on the first cell's device, the means
+    divided once."""
+    parts = []
+    for row in out.cells:
+        for c in row:
+            live = ~c.down
+            done = torch.where(live, c.done_at, 0)
+            parts.append(torch.stack([
+                live.sum(dtype=torch.int32),
+                done.sum(dtype=torch.int32),
+                torch.where(live, c.msg_received, 0).sum(dtype=torch.int32),
+                torch.where(live, c.done_at, INT_MAX).min(),
+                done.max(),
+                torch.where(live, c.done_at > 0, True).all().to(torch.int32),
+            ]))
+    p = exchange.gather_to([x[None] for x in parts], out.layout.cell_device(0, 0))
+    n_live = torch.clamp(p[:, 0].sum(dtype=torch.int32), min=1).to(torch.float32)
+    return {
+        "done_min": p[:, 3].min(),
+        "done_max": p[:, 4].max(),
+        "done_avg": p[:, 1].sum(dtype=torch.int32).to(torch.float32) / n_live,
+        "msg_rcv_avg": p[:, 2].sum(dtype=torch.int32).to(torch.float32) / n_live,
+        "all_done": p[:, 5].all(),
+    }
 
-    def __init__(self, net, sim_ms: int, key: tuple):
+
+class _CachedRun:
+    """The cached entry for one (net.cache_key(), sim_ms, layout
+    geometry): a callable that runs `net.run_ms_batched(states, sim_ms)`
+    — on `layout`'s placement of the states when there is one — and
+    reduces the statistics, and that registers one program per input
+    geometry."""
+
+    def __init__(self, net, sim_ms: int, key: tuple, layout=None):
         self.key = key
         self.net = net
+        self.layout = layout
         self.protocol = type(net.protocol).__name__
         self.sim_ms = int(sim_ms)
         self._programs: "OrderedDict[tuple, bool]" = OrderedDict()
@@ -112,6 +151,9 @@ class _CachedRun:
 
     @staticmethod
     def _signature(states) -> tuple:
+        if isinstance(states, PlacedState):
+            return (states.layout.geometry(),) + tuple(
+                _CachedRun._signature(c) for row in states.cells for c in row)
         return tuple(
             (tuple(getattr(leaf, "shape", ())), str(getattr(leaf, "dtype", "?")),
              str(getattr(leaf, "device", "?")))
@@ -119,6 +161,8 @@ class _CachedRun:
         )
 
     def __call__(self, states):
+        if self.layout is not None:
+            states = self.layout.place(self.net, states)
         sig = self._signature(states)
         first = False
         if sig not in self._programs:
@@ -142,7 +186,7 @@ class _CachedRun:
             self._summaries[sig].update(compiled_cost_summary(rec))
         else:
             out = self.net.run_ms_batched(states, self.sim_ms)
-        return out, _run_stats(out)
+        return out, (_placed_stats(out) if isinstance(out, PlacedState) else _run_stats(out))
 
     def summaries(self) -> list:
         return list(self._summaries.values())
@@ -176,11 +220,9 @@ def run_cache_metrics() -> dict:
 
 
 def _run_and_reduce(net, sim_ms: int, layout=None):
-    """The cached entry for (net.cache_key(), sim_ms): calls with an
-    equivalent network hit it."""
-    if layout is not None:
-        raise NotImplementedError(f"a run-cache layout needs a device mesh, {_MESH_ITEM}")
-    key = (net.cache_key(), int(sim_ms), None)
+    """The cached entry for (net.cache_key(), sim_ms, layout geometry):
+    calls with an equivalent network and layout hit it."""
+    key = (net.cache_key(), int(sim_ms), layout.geometry() if layout is not None else None)
     with _CACHE_LOCK:
         fn = _RUN_CACHE.get(key)
         if fn is not None:
@@ -188,7 +230,7 @@ def _run_and_reduce(net, sim_ms: int, layout=None):
             _RUN_CACHE.move_to_end(key)
             return fn
         _COUNTERS["misses"] += 1
-        fn = _CachedRun(net, sim_ms, key)
+        fn = _CachedRun(net, sim_ms, key, layout=layout)
         _RUN_CACHE[key] = fn
         while len(_RUN_CACHE) > _RUN_CACHE_MAX:
             _RUN_CACHE.popitem(last=False)
@@ -198,6 +240,8 @@ def _run_and_reduce(net, sim_ms: int, layout=None):
 
 def sharded_run_stats(net, states, sim_ms: int, layout=None) -> Tuple[object, dict]:
     """Run the batched simulation `sim_ms` ms through the run cache and
-    reduce the statistics on the device.  Returns (final states, dict of
-    0-d tensors)."""
+    reduce the statistics on the device.  Without a layout the states run
+    where they are (a placed state on its own layout); with a
+    mesh2d.MeshLayout the entry places them on it first.  Returns (final
+    states, dict of 0-d tensors)."""
     return _run_and_reduce(net, sim_ms, layout=layout)(states)

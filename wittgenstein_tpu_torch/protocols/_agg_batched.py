@@ -296,25 +296,27 @@ class BitsetAggBase(BatchedProtocol):
         SENDER-space words, re-addressed into the receiver's block-local
         space here; aux: optional [R, M] int32 stored per slot in
         proto["in_aux"] (GSF's prefix k), written where the content is."""
-        proto = state.proto
         d = self.CHANNEL_DEPTH
-        ss = d + 1
         r, m = mask.shape
-        n = self.n_nodes
         dev = mask.device
         from_idx = from_idx.to(torch.int32).expand(r, m)
         to_idx = to_idx.to(torch.int32)
         # masked rows may carry junk levels; clamp so every index is in range
         level = torch.clamp(level.to(torch.int32), 1, self.n_levels - 1)
-        state, ok, arrival = net.latency_arrivals(state, mask, from_idx, to_idx, t + 1, level, t)
+        # on a node block the rows are the block's own senders'
+        state, ok, arrival = net.latency_arrivals(state, mask, from_idx, to_idx, t + 1, level, t,
+                                                  local_rows=True)
         # receiver traffic counters tick at send time (the JAX package's
         # _send_stacked explains why)
         okc = ok.to(torch.int32)
         sizes = self._tab("sizes", dev)[level.to(torch.int64)]
-        state = state._replace(
-            msg_received=add_at(state.msg_received, to_idx, okc),
-            bytes_received=add_at(state.bytes_received, to_idx, okc * sizes),
-        )
+        if net.node_block:
+            received, bytes_received = self._receiver_counts(net, state, to_idx, okc,
+                                                             okc * sizes)
+        else:
+            received = add_at(state.msg_received, to_idx, okc)
+            bytes_received = add_at(state.bytes_received, to_idx, okc * sizes)
+        state = state._replace(msg_received=received, bytes_received=bytes_received)
         rel = to_idx ^ from_idx
         # beyond the int32 packing horizon sends are dropped and counted
         # as displaced; strictly below the last in-horizon ms, where a
@@ -334,9 +336,30 @@ class BitsetAggBase(BatchedProtocol):
             in_b = (level >= b.lo) & (level <= b.hi)
             r0 = torch.where(in_b, rel & (bs_row - 1), 0)
             cnt_list.append(xor_shuffle(content[i], r0))
+        if aux is not None:
+            aux = aux.to(torch.int32).expand(r, m)
+        if net.node_block:
+            return self._channel_commit_sharded(net, state, ok, to_idx, level, key, slot,
+                                                cnt_list, aux, time_overflow)
+        proto, displaced = self._commit_rows(state.proto, ok, to_idx, level, key, slot,
+                                             cnt_list, aux)
+        return state._replace(proto=dict(proto,
+                                         displaced=proto["displaced"] + displaced + time_overflow))
 
+    def _commit_rows(self, proto, ok, to_idx, level, key, slot, cnt_list, aux):
+        """The channel commit of [R, M] update rows into the receivers'
+        rows of `proto` (positions `to_idx` in its node rows): earliest
+        arrival wins an arrival slot, the newest offer the fresh slot.
+        Returns (proto with the new in_key, in_sig* and in_aux, the
+        displaced count per replica).  Winner selection is a min/max
+        scatter over unique keys, so the rows' order does not matter."""
+        d = self.CHANNEL_DEPTH
+        ss = d + 1
+        r = ok.shape[0]
+        dev = ok.device
+        lv0 = (level - 1).to(torch.int64)
         in_key = proto["in_key"]  # [R, N, C]
-        c = in_key.shape[-1]
+        n, c = in_key.shape[1], in_key.shape[-1]
         rbase = (torch.arange(r, dtype=torch.int64, device=dev) * n)[:, None]
         row = rbase + to_idx.to(torch.int64)  # [R, M] flat (replica, receiver)
         col = lv0 * ss + slot.to(torch.int64)
@@ -359,9 +382,9 @@ class BitsetAggBase(BatchedProtocol):
         # winner that evicted a still-pending occupant with a later arrival
         lost_entry = ok & ~winner & ~fresh_win
         evicted = winner & (prev != INT32_MAX) & (prev > key)
-        displaced = (lost_entry | evicted).sum(-1).to(torch.int32) + time_overflow
+        displaced = (lost_entry | evicted).sum(-1).to(torch.int32)
 
-        updates = dict(proto, in_key=new_key, displaced=proto["displaced"] + displaced)
+        updates = dict(proto, in_key=new_key)
         for i, b in enumerate(self.buckets):
             in_b = (level >= b.lo) & (level <= b.hi)
             li = (level - b.lo).to(torch.int64)
@@ -379,14 +402,93 @@ class BitsetAggBase(BatchedProtocol):
                 a, pos.reshape(-1, b.w_pad), vals.reshape(-1, b.w_pad), keep.reshape(-1)
             )
         if aux is not None:
-            aux = aux.to(torch.int32).expand(r, m)
             updates["in_aux"] = set_rows(
                 proto["in_aux"],
                 torch.cat([kidx, fidx], 1).reshape(-1, 1),
                 torch.cat([aux, aux], 1).reshape(-1, 1),
                 torch.cat([winner, fresh_win], 1).reshape(-1),
             )
-        return state._replace(proto=updates)
+        return updates, displaced
+
+    # -- node-sharded channel commit (explicit all_to_all exchange) ----------
+    def _receiver_counts(self, net, state, to_idx, okc, okb):
+        """msg_received and bytes_received after the send-time receiver
+        counts of a node block's rows: each block counts its rows per
+        destination node over every node, the counts go to their
+        receivers' blocks with one all_to_all, and each block adds the
+        blocks' counts for its own nodes (integer adds: exact)."""
+        from ..parallel.exchange import all_to_all
+
+        cell = net.cell
+        r, nl = state.msg_received.shape
+        p = cell.nodes.size
+        zeros = torch.zeros((r, nl * p), dtype=torch.int32, device=okc.device)
+        both = torch.stack([add_at(zeros, to_idx, okc), add_at(zeros, to_idx, okb)])
+        (got,) = all_to_all(cell.nodes, cell.node_rank,
+                            [both.reshape(2, r, p, nl).permute(2, 0, 1, 3)])
+        counts = got.sum(0, dtype=torch.int32)  # [2, R, nl]
+        return state.msg_received + counts[0], state.bytes_received + counts[1]
+
+    def _channel_commit_sharded(self, net, state, ok, to_idx, level, key, slot, cnt_list,
+                                aux, time_overflow):
+        """The channel commit of _send_stacked on a node block (the JAX
+        package's _channel_commit_sharded): each block holds N/P rows of
+        the channel arrays; a send's update rows are BUCKETED BY
+        DESTINATION BLOCK in a stable order, exchanged with one
+        `all_to_all` per tensor, and committed on the local rows with the
+        unsharded commit's min/max semantics (`_commit_rows`).  Winners
+        are order-free, so with `net.exchange_capacity` None (every row
+        fits its bucket) the result is the unsharded commit's, bit for
+        bit.  A bound on the capacity drops each bucket's rows past it,
+        counted in proto["displaced"], as channel displacement is.  The
+        displaced counts of the row's blocks are summed over the row."""
+        from ..parallel.exchange import all_to_all
+
+        cell = net.cell
+        p = cell.nodes.size
+        r, m = ok.shape
+        dev = ok.device
+        nl = cell.hi - cell.lo
+        cap = m if net.exchange_capacity is None else min(int(net.exchange_capacity), m)
+        aux_col = aux if aux is not None else torch.zeros_like(to_idx)
+        meta = torch.stack([to_idx, level, key, slot, aux_col, ok.to(torch.int32)], -1)
+
+        # 1. bucket rows by destination block, stable; rows past a
+        # bucket's capacity and masked rows go to a trash row
+        dest = torch.where(ok, torch.div(to_idx, nl, rounding_mode="floor"), p).to(torch.int64)
+        dsort, order = torch.sort(dest, dim=1, stable=True)
+        pos = torch.arange(m, device=dev) - torch.searchsorted(dsort, dsort)
+        fits = (dsort < p) & (pos < cap)
+        overflow = ((dsort < p) & (pos >= cap)).sum(-1).to(torch.int32)
+        slot_of = torch.where(fits, dsort * cap + pos, p * cap)  # [R, M]
+
+        def to_buf(vals):
+            rows = torch.gather(vals, 1, order[..., None].expand(vals.shape))
+            buf = vals.new_zeros((r, p * cap + 1, vals.shape[-1]))
+            buf = buf.scatter(1, slot_of[..., None].expand(rows.shape), rows)
+            # [R, P*cap, w] -> [P, R, cap, w]: row j bound for block j
+            return buf[:, :p * cap].reshape(r, p, cap, -1).transpose(0, 1)
+
+        # 2. one all_to_all per tensor: block i's bucket for me lands in
+        # my row i
+        got = all_to_all(cell.nodes, cell.node_rank,
+                         [to_buf(meta)] + [to_buf(c) for c in cnt_list])
+
+        def rows(x):
+            return x.transpose(0, 1).reshape(r, p * cap, -1)
+
+        meta_x = rows(got[0])
+        ok_r = meta_x[..., 5] > 0
+        to_r = torch.where(ok_r, meta_x[..., 0] - cell.lo, 0)
+        lvl = torch.clamp(meta_x[..., 1], 1, self.n_levels - 1)
+        key_r = torch.where(ok_r, meta_x[..., 2], INT32_MAX)
+
+        # 3. the local commit, the unsharded code on the block's rows
+        proto, displaced = self._commit_rows(
+            state.proto, ok_r, to_r, lvl, key_r, meta_x[..., 3],
+            [rows(g) for g in got[1:]], meta_x[..., 4] if aux is not None else None)
+        displaced = net.row_sum(displaced + overflow + time_overflow)
+        return state._replace(proto=dict(proto, displaced=proto["displaced"] + displaced))
 
     # -- entry-identity candidate clears -------------------------------------
     @staticmethod

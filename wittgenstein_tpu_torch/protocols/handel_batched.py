@@ -20,6 +20,12 @@ approximations).  What changes here is representation only:
     site with one kernel that reads each operand once.
 
 Every phase is bit-identical to the JAX package (tests/test_torch_handel.py).
+
+On a node block (parallel.node_shard) every hook runs on the block's
+rows: `ids` are the block's global ids (`net.node_ids`), which the XOR
+peer arithmetic, the rank permutation and every hash use, and the
+leaves' node dim is the block's.  The sends' channel commit goes
+through the exchange (`_agg_batched._channel_commit_sharded`).
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ _M32 = 0xFFFFFFFF
 
 
 class BatchedHandel(BitsetAggBase):
+    NODE_AXIS = True  # its hooks run on a node block (parallel.node_shard)
     CAND_SLOTS = 8  # K: arrived verification candidates per (receiver, level)
     WORD_LEAVES = ("agg", "ind", "inc", "ver_sig", "bl", "byz", "in_sig*", "cand_sig*")
     PROTO_KEYS = ("agg", "fp_left")
@@ -243,10 +250,10 @@ class BatchedHandel(BitsetAggBase):
         (Handel.java:686-750), one stacked body per width bucket."""
         p = self.params
         proto = state.proto
-        n, L = self.n_nodes, self.n_levels
+        L = self.n_levels
         dev = state.done_at.device
-        r = state.done_at.shape[0]
-        ids = torch.arange(n, dtype=torch.int32, device=dev)
+        r, n = state.done_at.shape  # n: this engine's node rows
+        ids = net.node_ids(dev)
 
         due = proto["ver_active"] & (t >= proto["ver_done_t"])
         good = due & ~proto["ver_bad"]
@@ -411,10 +418,10 @@ class BatchedHandel(BitsetAggBase):
         verification candidates; the buffer keeps the top-K by
         (sizeIfIncluded, rank) among survivors of the curation rule."""
         proto = state.proto
-        n, L, D, K = self.n_nodes, self.n_levels, self.CHANNEL_DEPTH, self.CAND_SLOTS
+        L, D, K = self.n_levels, self.CHANNEL_DEPTH, self.CAND_SLOTS
         dev = state.done_at.device
-        r = state.done_at.shape[0]
-        ids = torch.arange(n, dtype=torch.int32, device=dev)
+        r, n = state.done_at.shape
+        ids = net.node_ids(dev)
         rel_mask = (1 << self.rel_bits) - 1
         ss = D + 1
         lv_all = self._tab("lv_all", dev)
@@ -532,10 +539,10 @@ class BatchedHandel(BitsetAggBase):
         all levels in ONE stacked send."""
         p = self.params
         proto = state.proto
-        n, L = self.n_nodes, self.n_levels
+        L = self.n_levels
         dev = state.done_at.device
-        r = state.done_at.shape[0]
-        ids = torch.arange(n, dtype=torch.int32, device=dev)
+        r, n = state.done_at.shape
+        ids = net.node_ids(dev)
         lv_all = self._tab("lv_all", dev)
         bs_all = self._tab("lv_bs", dev)
 
@@ -601,10 +608,10 @@ class BatchedHandel(BitsetAggBase):
         p = self.params
         proto = state.proto
         v = proto if view is None else {**proto, **view}
-        n, L, K = self.n_nodes, self.n_levels, self.CAND_SLOTS
+        L, K = self.n_levels, self.CAND_SLOTS
         dev = state.done_at.device
-        r = state.done_at.shape[0]
-        ids = torch.arange(n, dtype=torch.int32, device=dev)
+        r, n = state.done_at.shape
+        ids = net.node_ids(dev)
         seed2 = state.seed[:, None]
 
         # busy gate from CURRENT state; everything the selection SCORES on
@@ -881,8 +888,9 @@ class BatchedHandel(BitsetAggBase):
             keys = keys + self.CACHE_LEAF_NAMES
         return keys
 
-    def all_done(self, state):
-        """bool[R]: every live node of the replica has aggregated."""
+    def all_done(self, state, net=None):
+        """bool[R]: every live node of the replica (of a node block's
+        nodes, which the engine reduces over the row) has aggregated."""
         return torch.all(state.down | (state.done_at > 0), dim=-1)
 
 

@@ -21,6 +21,12 @@ every peer but its sender.  What changes here is representation only:
     Without a winner it goes out with no rows and keeps its send
     counter.
 
+On a node block (parallel.node_shard) `received` holds the block's
+nodes: a block races the rows of its own receivers, and the winners'
+view mask is or-ed over the row (`net.row_any`) before the forward is
+built from it, so every block forwards the unsharded run's rows in view
+order.  The adjacency is a static table, uploaded once per device.
+
 The flood runs on the flat store (`wheel_rows=0`): a wave can land on
 one tick, which would need wheel rows as wide as the store, as the JAX
 package notes.  So its loop reads no wheel occupancy and launches no
@@ -66,11 +72,14 @@ class BatchedP2PFlood(BatchedProtocol):
     MSG_TYPES = ["FLOOD"]
     PAYLOAD_WIDTH = 1  # flood id
     TICK_INTERVAL = None  # pure message protocol: engine may skip empty ms
+    NODE_AXIS = True  # its hooks run on a node block (parallel.node_shard)
 
     def __init__(self, params: P2PFloodParameters, adjacency: np.ndarray, senders, device=None):
         dev = resolve_device(device)
         self.params = params
         self.adj = torch.as_tensor(np.asarray(adjacency, np.int32), device=dev)
+        self._adj_host = np.asarray(adjacency, np.int32)
+        self._adj_on = {str(dev): self.adj}
         self.senders = list(senders)  # flood id -> origin node id
         self.n_nodes = params.node_count
         self.n_floods = len(self.senders)
@@ -86,11 +95,19 @@ class BatchedP2PFlood(BatchedProtocol):
         received[self.senders, torch.arange(self.n_floods)] = True
         return {"received": received}
 
+    def _adjacency(self, device) -> torch.Tensor:
+        """The adjacency table on `device`, uploaded once."""
+        key = str(device)
+        if key not in self._adj_on:
+            self._adj_on[key] = torch.as_tensor(self._adj_host, device=device)
+        return self._adj_on[key]
+
     def _forward(self, src, fid, mask, exclude, t: int):
         """Emission: src [R, K] forwards flood fid [R, K] to all its peers
         except `exclude`, with FloodMessage's local and per-peer delays."""
         p = self.params
-        ok, frm, to, pay, rank = forward_rows(self.adj, src, fid, mask, exclude)
+        ok, frm, to, pay, rank = forward_rows(self._adjacency(src.device), src, fid, mask,
+                                              exclude)
         # sendPeers/_send_multi spacing: the k-th sent destination leaves
         # at base + k*(delay+1) when delay_between_sends > 0
         # (Network.java:449-467)
@@ -129,17 +146,23 @@ class BatchedP2PFlood(BatchedProtocol):
             return torch.gather(c, 1, idx)
 
         to, frm, fid = col(state.msg_to), col(state.msg_from), col(state.msg_payload[..., 0])
-        cell = to.to(torch.int64) * nf + fid
+        # a node block's cells are its own nodes' (every node off a block)
+        cell = net.to_local(to).to(torch.int64) * nf + fid
         fresh = live & ~take(received.reshape(r, -1), cell)
 
         # winner per (node, flood): lowest delivering slot this tick
-        is_winner = first_in_cell(cell, fresh, self.n_nodes * nf)
+        is_winner = first_in_cell(cell, fresh, received.shape[1] * nf)
         received = put_cells(received, cell, True, fresh)
         count = received.sum(-1)
         # onFlood: done when msg_count distinct messages held (P2PFlood.java:39-43)
         done = (count >= self.params.msg_count) & (state.done_at == 0) & ~state.down
         done_at = torch.where(done, t, state.done_at)
 
+        if net.node_block:
+            # the row's winners in view order: the blocks' or-ed view masks
+            view = torch.zeros(deliver_mask.shape, dtype=torch.int32, device=deliver_mask.device)
+            is_winner = net.row_any(view.scatter_add(1, idx, is_winner.to(torch.int32)) > 0)
+            to, frm, fid = state.msg_to, state.msg_from, state.msg_payload[..., 0]
         (wrows,) = live_rows([is_winner])
         if wrows is None:
             em = Emission.no_rows(r, self.mtype("FLOOD"), self.PAYLOAD_WIDTH, deliver_mask.device)
@@ -153,7 +176,7 @@ class BatchedP2PFlood(BatchedProtocol):
         state = state._replace(proto={"received": received}, done_at=done_at)
         return state, [em]
 
-    def all_done(self, state):
+    def all_done(self, state, net=None):
         return torch.where(state.down, True, state.done_at > 0).all(-1)
 
 

@@ -7,6 +7,11 @@ a pure message protocol (TICK_INTERVAL None), so it runs on the engine's
 time-wheel store and its consensus-jump loop, which launch the
 pack_bool_words, lowest_set_bit and popcount_words kernels on a CUDA
 state.
+
+On a node block (parallel.node_shard) the engine hands `deliver` the
+block's own receivers: a block counts its nodes' pongs, and the Pong
+replies of the row are the blocks' ping masks or-ed over the row
+(`net.row_any`), so every block sends the unsharded run's rows.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from ..utils.javarand import JavaRandom
 class BatchedPingPong(BatchedProtocol):
     MSG_TYPES = ["PING", "PONG"]
     TICK_INTERVAL = None  # pure message protocol: the engine skips empty ms
+    NODE_AXIS = True  # its hooks run on a node block (parallel.node_shard)
 
     def __init__(self, n_nodes: int, witness: int = 0):
         self.n_nodes = n_nodes
@@ -51,9 +57,10 @@ class BatchedPingPong(BatchedProtocol):
         ping = deliver_mask & (state.msg_type == self.mtype("PING"))
         pong = deliver_mask & (state.msg_type == self.mtype("PONG"))
         # on_ping: reply Pong to the sender (PingPong.java onPing)
+        # on a node block: the row's replies, from every block's receivers
         emissions = [
             Emission(
-                mask=ping,
+                mask=net.row_any(ping),
                 from_idx=state.msg_to,
                 to_idx=state.msg_from,
                 mtype=self.mtype("PONG"),
@@ -61,11 +68,18 @@ class BatchedPingPong(BatchedProtocol):
         ]
         # on_pong: count (commutative scatter-add; view ids are in range,
         # so the JAX package's drop mode never drops)
-        new_pong = add_at(state.proto["pong"], state.msg_to, pong.to(torch.int32))
+        new_pong = add_at(state.proto["pong"], net.to_local(state.msg_to), pong.to(torch.int32))
         return state._replace(proto={"pong": new_pong}), emissions
 
-    def all_done(self, state):
-        return state.proto["pong"][:, self.witness] >= self.n_nodes
+    def all_done(self, state, net=None):
+        """bool[R]: the witness has every pong.  On a node block only the
+        witness's block knows; the others answer True, the neutral
+        element of the engine's all-reduce over the row."""
+        pong = state.proto["pong"]
+        lo = net.cell.lo if net is not None and net.node_block else 0
+        if not lo <= self.witness < lo + pong.shape[1]:
+            return torch.ones(pong.shape[0], dtype=torch.bool, device=pong.device)
+        return pong[:, self.witness - lo] >= self.n_nodes
 
 
 def make_pingpong(

@@ -212,7 +212,13 @@ def iter_keyed_leaves(tree, keys: tuple = ()):
 
 def leaf_signature(tree) -> List[str]:
     """`path:shape:dtype` of every leaf (`iter_leaves`), from the leaves'
-    metadata only: no leaf's values are read."""
+    metadata only: no leaf's values are read.  A placed state
+    (parallel.mesh2d) signs as its unsharded state: placement is not a
+    run identity."""
+    from ..parallel.mesh2d import PlacedState
+
+    if isinstance(tree, PlacedState):
+        return [f"{key}:{shape}:{dtype}" for key, shape, dtype in _placed_signature(tree)]
     out = []
     for path, leaf, word in iter_leaves(tree):
         shape = getattr(leaf, "shape", ())
@@ -220,6 +226,23 @@ def leaf_signature(tree) -> List[str]:
             shape = tuple(shape)
         out.append(f"{path}:{shape}:{_dtype_name(leaf, word)}")
     return out
+
+
+def _placed_signature(tree):
+    """(path, unsharded shape, dtype) of a placed state's leaves, in
+    iter_leaves' order and rendering, from its first cell's leaves and
+    the layout's shard counts."""
+    shapes = {key: shape for key, shape, _, _ in tree.leaf_shards()}
+    cell = tree.cells[0][0]
+    if not tree.stacked:
+        from ..engine.core import map_state
+
+        cell = map_state(lambda a: a[0], cell)
+    from ..parallel.mesh2d import keyed_leaves
+
+    keys = [k for k, _ in keyed_leaves(cell)]
+    sig = [(path, leaf, word) for path, leaf, word in iter_leaves(cell)]
+    return [(path, shapes[k], _dtype_name(leaf, word)) for k, (path, leaf, word) in zip(keys, sig)]
 
 
 def stable_run_key(net: Any, template: Any, n_chunks: int, chunk_ms: int) -> str:

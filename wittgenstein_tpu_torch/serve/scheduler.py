@@ -68,9 +68,14 @@ Design differences from the JAX package
 - A program is the run cache's first call at a new input geometry
   (parallel.replica_shard); the port has no compile store, so
   ``health()["compileStore"]`` is ``{"enabled": False, "counters": {}}``.
-- Lanes on more than one device wait for the multi-device slice
-  (ROADMAP Queue A 16): a lane's group must hold the scheduler's own
-  device, where its families are built.
+- A lane with a device group has families of its own, built on its
+  group's first device (the family key gains the lane);
+  `run_singleton` builds on the scheduler's device.  A
+  lane of several devices runs its batches placed on its group's layout
+  (parallel.mesh2d); the results are gathered to the lane's first
+  device to finish the jobs.  Families are always fault-armed, so a
+  ``node_parallel > 1`` lane raises when it runs a batch until the node
+  axis takes fault-armed engines (ROADMAP Queue A 2).
 """
 
 from __future__ import annotations
@@ -103,6 +108,7 @@ from ..obs import (
 )
 from ..obs.attribution import host
 from ..parallel.device_groups import make_device_groups, visible_devices
+from ..parallel.mesh2d import PlacedState
 from ..parallel.replica_shard import (
     _run_and_reduce,
     run_cache_info,
@@ -138,12 +144,10 @@ from .jobs import (
 from .metrics import ServeMetrics
 
 
-def _index(dev: torch.device) -> tuple:
-    """A device with its index made explicit (CUDA's current device when
-    it has none)."""
-    if dev.type == "cuda" and dev.index is None:
-        return (dev.type, torch.cuda.current_device())
-    return (dev.type, dev.index or 0)
+def _unplaced(state):
+    """A lane's result on one device: a placed state gathered to its
+    first cell's device, anything else as it is."""
+    return state.gather() if isinstance(state, PlacedState) else state
 
 
 def _job_ctx(job: Job) -> TraceContext:
@@ -352,20 +356,10 @@ class BatchScheduler:
             # (and no re-placement cost for the common case)
             self._lanes = [_Lane(0, None)]
         else:
-            devices = (
-                visible_devices() if self.device.type == "cuda"
-                else [self.device]
-            )
             groups = make_device_groups(
-                device_groups, devices=devices, node_parallel=node_parallel
+                device_groups, devices=visible_devices(self.device.type),
+                node_parallel=node_parallel,
             )
-            here = _index(self.device)
-            if any(_index(g.devices[0]) != here for g in groups):
-                raise NotImplementedError(
-                    "lanes on devices other than the scheduler's need "
-                    "per-lane families: the multi-device slice (ROADMAP "
-                    "Queue A 16)"
-                )
             self._lanes = [_Lane(g.index, g) for g in groups]
         self.device_groups = len(self._lanes)
         self.node_parallel = node_parallel
@@ -559,8 +553,20 @@ class BatchScheduler:
     def _params_key(params: dict) -> str:
         return json.dumps(params, sort_keys=True, default=str)
 
-    def family_for(self, spec: JobSpec) -> ScenarioFamily:
+    def _lane_device(self, lane) -> torch.device:
+        """Where a lane's families live: its group's first device (the
+        scheduler's without a group)."""
+        if lane is None or lane.group is None:
+            return self.device
+        return lane.group.devices[0]
+
+    def family_for(self, spec: JobSpec, lane=None) -> ScenarioFamily:
+        """The family of `spec` for `lane`: a lane with a device group
+        has families of its own, built on its group's first device."""
+        dev = self._lane_device(lane)
         key = self.pre_key(spec)
+        if lane is not None and lane.group is not None:
+            key = f"{key}@lane{lane.index}"
         with self._fam_lock:
             fam = self._families.get(key)
             if fam is not None:
@@ -578,7 +584,7 @@ class BatchScheduler:
                 snapshot_every_ms=max(1, cadence_ms // max(1, snaps)),
             )
             entry = serve_protocol(spec.protocol)
-            net, state = entry.build(spec.params, tele_cfg, self.device)
+            net, state = entry.build(spec.params, tele_cfg, dev)
             # faults are ALWAYS armed: a fault-free job is the neutral
             # schedule (bit-identical to the fault-free run), so one
             # program serves faulted and clean rows alike
@@ -608,7 +614,7 @@ class BatchScheduler:
         # the layout with a throwaway engine, arm side-cars through the
         # FAMILY net so the signature discipline is identical, and keep
         # only the state
-        _, st = fam.entry.build(spec.params, fam.tele_cfg, self.device)
+        _, st = fam.entry.build(spec.params, fam.tele_cfg, fam.net.device)
         _, st = fam.net.with_faults(st)
         if _leaf_signature(st) != fam.signature:
             raise ValueError(
@@ -849,7 +855,7 @@ class BatchScheduler:
                 f"batch mixes compatibility keys {sorted(compat)}"
             )
         try:
-            fam = self.family_for(live[0].spec)
+            fam = self.family_for(live[0].spec, lane)
         except BaseException as e:  # noqa: BLE001 — family build failure
             # the family comes from the shared pre-key, so no single
             # job can be blamed: the whole group fails honestly
@@ -969,7 +975,7 @@ class BatchScheduler:
         n_live = len(jobs)
 
         def watch(state, chunk):
-            done = host(proto.all_done(state))
+            done = host(proto.all_done(_unplaced(state)))
             self.metrics.observe_rows_done(
                 int(done[:n_live].sum()), n_live
             )
@@ -1325,6 +1331,7 @@ class BatchScheduler:
         }
 
     def _finalize(self, fam: ScenarioFamily, jobs: List[Job], out) -> None:
+        out = _unplaced(out)
         attrib = self._attribution(fam, jobs, out)
         for i, job in enumerate(jobs):
             if job.cancel_requested:

@@ -125,13 +125,15 @@ def pending_scalar(tele: TelemetryState) -> torch.Tensor:
     return (tele.sent - tele.delivered - tele.discarded - tele.dropped).sum(-1).to(torch.int32)
 
 
-def record_snapshot(tele: TelemetryState, cfg: TelemetryConfig, state, t: int) -> TelemetryState:
+def record_snapshot(tele: TelemetryState, cfg: TelemetryConfig, state, t: int,
+                    row_sum=None) -> TelemetryState:
     """Write the progress sample of executed tick `t` (a host int) into
     its window's slot; later ticks of the window overwrite it, so the slot
     ends up holding the window's last executed tick, which equals the
     window-end state because jumped ticks change nothing.  The slot and
     snap_time come from `t`: the loops advance `state.time` only at the
-    end of a run."""
+    end of a run.  `row_sum`, given on a node block, sums a per-replica
+    count over the row's blocks."""
     slot = (t // cfg.snapshot_every_ms) % cfg.snapshots
 
     def put(col, vals):
@@ -140,7 +142,8 @@ def record_snapshot(tele: TelemetryState, cfg: TelemetryConfig, state, t: int) -
         return out
 
     def total(col):
-        return col.sum(-1).to(torch.int32)
+        out = col.sum(-1).to(torch.int32)
+        return out if row_sum is None else row_sum(out)
 
     return tele._replace(
         snap_time=put(tele.snap_time, t),
